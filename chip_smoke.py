@@ -1,0 +1,279 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``repro_torch``) on one NVIDIA GPU and check it.
+
+Run from the root of the repository on a machine with an H100:
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any mismatch raises and the script exits
+non-zero without printing a result):
+
+  1. the device: ``torch.cuda.get_device_name`` and the card's name and power
+     limit from ``nvidia-smi``;
+  2. build: ``nvcc`` compiles ``kernels/csrc/coflow_assign.cu`` for sm_90a;
+  3. the assignment kernel against its plain PyTorch version on the card,
+     bit for bit, on small and edge shapes (F=0, F=5, K=8 at N=150, K=8 at
+     N=512 where the nonzero bitmap lives in global memory) and on the first
+     4,096 pi-ordered flows of the 526-coflow trace instance;
+  4. the main path: ``sample_instance(N=150, M=200)`` of the FB-2010-style
+     trace through ``run_fast`` and ``validate``, with weighted and tail CCT,
+     each stage's time, the kernel's launch count in that run, a check of
+     every CCT against the Lemma 1 lower bound, a small instance whose GPU
+     run must equal its CPU run, and the kernel against its plain version
+     on the main path's own 191,551 flows;
+  5. the kernel over the whole trace (M=526, 443,943 flows).
+
+It then prints the kernel table as one JSON line and, last, the
+``{"ok": true, "device": ...}`` line. It needs one card and no network;
+without CUDA it exits 1 before doing anything.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: fp32 operations per flow and core in the kernel's step: 5 for li, 5 for
+#: lj, 2 maxima.
+OPS_PER_FLOW_CORE = 12
+#: Bytes per flow the function must move: fi, fj, size in, choice out.
+BYTES_PER_FLOW = 16
+
+TRACE_COFLOWS, TRACE_SEED = 526, 2026
+N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
+#: tests/test_kernels_assign.py CASES: (F, K, N, delta).
+CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "drives the port on a GPU and has no CPU mode", file=sys.stderr)
+        return 1
+
+    from repro_torch.core import (build_flow_table, extract_flows,
+                                  order_coflows, run_fast, sample_instance,
+                                  synth_fb_trace, tail_cct, validate)
+    from repro_torch.core.coflow import col_loads, row_loads
+    from repro_torch.core.engine import (FlowTable, _ccts_from_times,
+                                         _times_for_table)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.kernels.ops import coflow_assign
+
+    dev = torch.device("cuda")
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def event_ms(fn, reps: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # ---- 1. device ------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1] device: {kind} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+    log(f"[1] nvidia-smi: {smi}")
+
+    # ---- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.load("coflow_assign")
+    log(f"[2] built coflow_assign.cu in {time.perf_counter() - t0:.2f} s "
+        f"({' '.join(_build.NVCC_FLAGS)})")
+    for line in _build.build_log("coflow_assign").splitlines():
+        if "ptxas info" in line:
+            log(f"[2]   {line.strip()}")
+
+    max_err = 0
+
+    def kernel_vs_plain(label, fi, fj, sz, rates, delta, n_ports, phase=3):
+        nonlocal max_err
+        got = ca.coflow_assign_cuda(fi, fj, sz, rates, delta, n_ports=n_ports)
+        torch.cuda.synchronize()
+        want, plain_s = sync_time(lambda: ca.coflow_assign_plain(
+            fi, fj, sz, rates, delta, n_ports=n_ports))
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        n_diff = int((got != want).sum())
+        log(f"[{phase}] {label}: F={fi.numel()} K={rates.numel()} N={n_ports} "
+            f"delta={delta}: {n_diff} choices differ "
+            f"(plain version {plain_s:.3f} s)")
+        if n_diff:
+            raise AssertionError(f"kernel != plain version on {label}")
+        return plain_s
+
+    def on_card(fi, fj, sz, rates):
+        return (torch.as_tensor(np.asarray(fi, np.int32), device=dev),
+                torch.as_tensor(np.asarray(fj, np.int32), device=dev),
+                torch.as_tensor(np.asarray(sz, np.float32), device=dev),
+                torch.as_tensor(np.asarray(rates, np.float32), device=dev))
+
+    # ---- 3. kernel vs plain version on the card -----------------------
+    for F, K, N, delta in CASES:
+        rng = np.random.default_rng(F + K)
+        fi = rng.integers(0, N, F)
+        fj = rng.integers(0, N, F)
+        sz = rng.exponential(50, F)
+        rates = np.sort(rng.uniform(5, 30, K))
+        kernel_vs_plain(f"case {(F, K, N, delta)}", *on_card(fi, fj, sz, rates),
+                        delta, N)
+    empty = on_card([], [], [], [10.0, 20.0])
+    out = ca.coflow_assign_cuda(*empty, 2.0, n_ports=8)
+    if out.shape != (0,) or out.dtype != torch.int32:
+        raise AssertionError("F=0 must return an empty int32 tensor")
+    log("[3] F=0: empty int32 result, no launch")
+    rng = np.random.default_rng(0)
+    fi, fj = rng.integers(0, 8, 5), rng.integers(0, 8, 5)
+    sz = rng.exponential(20, 5) + 0.1
+    kernel_vs_plain("single block F=5", *on_card(fi, fj, sz, [10, 20, 30]), 4.0, 8)
+    for N in (150, 512):
+        rng = np.random.default_rng(N)
+        ports = rng.choice(N, size=48, replace=False)  # repeats set nz bits
+        fi = ports[rng.integers(0, 48, 4096)]
+        fj = ports[rng.integers(0, 48, 4096)]
+        sz = rng.exponential(50, 4096)
+        rates = np.sort(rng.uniform(5, 30, 8))
+        where = "shared" if ca._smem_layout(8, N)[3] else "global"
+        kernel_vs_plain(f"K=8 N={N} (nz bitmap in {where} memory)",
+                        *on_card(fi, fj, sz, rates), 8.0, N)
+
+    trace = synth_fb_trace(TRACE_COFLOWS, seed=TRACE_SEED)
+    inst526, t_inst526 = sync_time(lambda: sample_instance(
+        trace, N=N_PORTS, M=TRACE_COFLOWS, rates=RATES, delta=DELTA, seed=0,
+        device=dev))
+    _pos, _cid, fi526, fj526, sz526 = extract_flows(inst526, order_coflows(inst526))
+    rates32 = inst526.rates.float()
+    plain_4096_s = kernel_vs_plain(
+        "first 4,096 pi-ordered flows of the M=526 trace instance",
+        fi526[:4096].int(), fj526[:4096].int(), sz526[:4096].float(), rates32,
+        DELTA, N_PORTS)
+
+    # ---- 4. main path -----------------------------------------------------
+    inst, t_inst = sync_time(lambda: sample_instance(
+        trace, N=N_PORTS, M=M_MAIN, rates=RATES, delta=DELTA, seed=0, device=dev))
+    log(f"[4] instance: M={inst.M} N={inst.N} K={inst.K} delta={inst.delta}; "
+        f"sampled and moved to the card in {t_inst:.2f} s")
+    ca.launches = 0
+    sched, t_run = sync_time(lambda: run_fast(inst))
+    main_launches = ca.launches
+    if main_launches < 1:
+        raise AssertionError("run_fast did not launch the coflow_assign kernel")
+    _, t_val = sync_time(lambda: validate(sched))
+    F = sched.n_flows
+    ccts = sched.ccts
+    if ccts.shape != (inst.M,) or not bool(torch.isfinite(ccts).all()) \
+            or not bool((ccts > 0).all()):
+        raise AssertionError("CCTs must be finite and positive, one per coflow")
+    lb = inst.delta + torch.maximum(row_loads(inst.demand).amax(1),
+                                    col_loads(inst.demand).amax(1)) / inst.R
+    if not bool((ccts >= lb * (1 - 1e-12)).all()):
+        raise AssertionError("a CCT is below its Lemma 1 lower bound")
+    wcct, p95, p99 = sched.total_weighted_cct, tail_cct(sched, 0.95), tail_cct(sched, 0.99)
+    log(f"[4] run_fast: {F} flows, {main_launches} kernel launch(es), "
+        f"{t_run:.3f} s end to end; validate passed in {t_val:.3f} s")
+    log(f"[4] weighted CCT {wcct!r}  p95 CCT {p95!r}  p99 CCT {p99!r}  "
+        f"(every CCT >= delta + rho/R)")
+
+    # the same pipeline stage by stage, synchronised around each stage
+    (pi, flows), t_extract = sync_time(
+        lambda: (lambda p: (p, extract_flows(inst, p)))(order_coflows(inst)))
+    pos, cid, fi, fj, size = flows
+    core, t_kernel = sync_time(lambda: coflow_assign(
+        fi, fj, size, inst.rates, inst.delta, n_ports=inst.N))
+    table = FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core.long(), size=size)
+    (t_est, srv), t_loop = sync_time(lambda: _times_for_table(inst, table))
+    ccts2, t_ccts = sync_time(lambda: _ccts_from_times(inst, pi, table, t_est, srv))
+    if not torch.equal(ccts2, ccts):
+        raise AssertionError("stage-by-stage CCTs differ from run_fast's")
+    log(f"[4] stages: order+extract {t_extract:.4f} s | kernel {t_kernel:.4f} s "
+        f"| host event loop (with copies) {t_loop:.3f} s | CCTs {t_ccts:.4f} s "
+        f"| referee {t_val:.3f} s")
+
+    small_trace = synth_fb_trace(200, seed=7)
+    small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
+                                delta=DELTA, seed=3, device=d)
+             for d in ("cuda", "cpu")}
+    s_gpu, s_cpu = run_fast(small["cuda"]), run_fast(small["cpu"])
+    validate(s_gpu)
+    same = torch.equal(s_gpu.core.cpu(), s_cpu.core) and torch.equal(
+        s_gpu.t_establish.cpu(), s_cpu.t_establish) and torch.equal(
+        s_gpu.ccts.cpu(), s_cpu.ccts)
+    if not same:
+        raise AssertionError("small instance: GPU run differs from CPU run")
+    log(f"[4] small instance (N=24, M=60, {s_gpu.n_flows} flows): GPU run "
+        f"equals the CPU run (plain version) in choices, t_establish, CCTs")
+
+    fi32, fj32, sz32 = fi.int(), fj.int(), size.float()
+    plain_main_s = kernel_vs_plain("main path flows", fi32, fj32, sz32,
+                                   inst.rates.float(), DELTA, N_PORTS, phase=4)
+    ms = event_ms(lambda: ca.coflow_assign_cuda(
+        fi32, fj32, sz32, inst.rates.float(), DELTA, n_ports=N_PORTS), reps=5)
+    bytes_s = (BYTES_PER_FLOW * F + 4 * inst.K) / HBM_BYTES_PER_S
+    ops_s = OPS_PER_FLOW_CORE * F * inst.K / FP32_OPS_PER_S
+    bound_ms = 1e3 * max(bytes_s, ops_s)
+    log(f"[4] kernel at F={F}: {ms:.3f} ms ({1e6 * ms / F:.1f} ns per flow); "
+        f"plain version {1e3 * plain_main_s:.1f} ms; bound {bound_ms:.6f} ms "
+        f"({'bytes' if bytes_s >= ops_s else 'operations'})")
+
+    # ---- 5. the whole trace -------------------------------------------------
+    table526, t_table526 = sync_time(lambda: build_flow_table(
+        inst526, order_coflows(inst526)))
+    if not bool(((table526.core >= 0) & (table526.core < inst526.K)).all()):
+        raise AssertionError("a choice is outside [0, K)")
+    args526 = (fi526.int(), fj526.int(), sz526.float(), rates32)
+    ms526 = event_ms(lambda: ca.coflow_assign_cuda(*args526, DELTA,
+                                                   n_ports=N_PORTS), reps=3)
+    log(f"[5] M=526: instance {t_inst526:.2f} s; build_flow_table "
+        f"{t_table526:.3f} s for {table526.n_flows} flows; kernel "
+        f"{ms526:.3f} ms ({1e6 * ms526 / table526.n_flows:.1f} ns per flow); "
+        f"every choice in [0, {inst526.K})")
+    log(f"[5] plain version at 4,096 flows: {1e3 * plain_4096_s:.1f} ms")
+
+    log(json.dumps({"kernels": [{
+        "name": "coflow_assign", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
+        "replaces": "src/repro/kernels/coflow_assign.py:38",
+        "launches": main_launches, "max_abs_err": float(max_err),
+        "ms": ms, "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": None}]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

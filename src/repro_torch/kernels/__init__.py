@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+  coflow_assign  — the paper's tau-aware greedy cross-core assignment
+                   (Alg. 1 lines 5-17), CUDA C++ in ``csrc/coflow_assign.cu``;
+                   replaces the Pallas kernel ``_assign_kernel``.
+
+The public entry points are in ``ops`` (``ops.coflow_assign``); each kernel's
+module holds its wrapper, its plain version and its launch count. The CUDA
+sources are compiled on first use (``_build``), so importing this package
+needs neither ``nvcc`` nor a GPU.
+"""

@@ -21,7 +21,22 @@ non-zero without printing a result):
      every CCT against the Lemma 1 lower bound, a small instance whose GPU
      run must equal its CPU run, and the kernel against its plain version
      on the main path's own 191,551 flows;
-  5. the kernel over the whole trace (M=526, 443,943 flows).
+  5. the kernel over the whole trace (M=526, 443,943 flows);
+  6. build: ``nvcc`` compiles ``kernels/csrc/flash_attention.cu`` (started
+     beside the phase-2 build, one nvcc per source);
+  7. the flash-attention kernel against its plain PyTorch version on the
+     card: the 7 CASES of ``tests/test_kernels_attention.py`` (1e-5 fp32,
+     2e-2 bf16), ragged S, and the real layer-0 q/k/v of the TinyLlama
+     prefill of phase 8 (bf16, 2e-2), with the kernel's, the plain
+     version's and SDPA's times at that shape;
+  8. the serving path at full width: ``DenseLM`` with tinyllama-1.1b's
+     config (22 layers, d_model 2048, 32/4 heads, bf16, seeded random
+     weights), ``attention_impl="pallas"``, 8 prompts of 2,048 tokens, one
+     ``build_prefill`` step (22 kernel launches) and 16 greedy
+     ``build_decode`` steps; the last decode logits are held to
+     ``_forward_train`` on the whole 2,064-token sequence (6e-2), and a
+     ``torch.profiler`` trace of one prefill and one decode step gives the
+     device time by kind of kernel.
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -29,9 +44,11 @@ without CUDA it exits 1 before doing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +70,25 @@ TRACE_COFLOWS, TRACE_SEED = 526, 2026
 N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
 #: tests/test_kernels_assign.py CASES: (F, K, N, delta).
 CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
+
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak.
+BF16_OPS_PER_S = 989e12
+#: tests/test_kernels_attention.py CASES: (B, S, H, KVH, Dh, causal, window,
+#: dtype), then two ragged lengths (S not a multiple of the kernel's 64).
+FA_CASES = [
+    (2, 128, 4, 4, 64, True, None, "float32"),
+    (2, 256, 4, 2, 64, True, None, "float32"),
+    (1, 256, 8, 1, 128, True, None, "bfloat16"),
+    (2, 256, 4, 1, 64, True, 128, "bfloat16"),
+    (1, 128, 2, 2, 64, False, None, "float32"),
+    (1, 512, 4, 4, 128, True, 256, "float32"),
+    (3, 192, 6, 3, 64, True, None, "bfloat16"),
+    (2, 200, 4, 2, 64, True, None, "float32"),
+    (2, 2064, 8, 1, 64, True, None, "bfloat16"),
+]
+#: The serving phase: prompts, prompt length (TinyLlama's context), decode
+#: steps, and the reference's serving tolerance (tests/test_system.py).
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_TOL = 8, 2048, 16, 6e-2
 
 
 def log(msg: str) -> None:
@@ -78,6 +114,7 @@ def main() -> int:
     from repro_torch.kernels.ops import coflow_assign
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     def sync_time(fn):
         torch.cuda.synchronize()
@@ -107,10 +144,29 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(f"[1] nvidia-smi: {smi}")
 
-    # ---- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load("coflow_assign")
-    log(f"[2] built coflow_assign.cu in {time.perf_counter() - t0:.2f} s "
+    # ---- 2. build (both kernels start now, one nvcc each) ----------------
+    builds = {}
+
+    def build(name):
+        t_b = time.perf_counter()
+        try:
+            _build.load(name)
+            builds[name] = time.perf_counter() - t_b
+        except BaseException as exc:  # re-raised by the phase that waits
+            builds[name] = exc
+
+    threads = {n: threading.Thread(target=build, args=(n,))
+               for n in ("coflow_assign", "flash_attention")}
+    for t in threads.values():
+        t.start()
+
+    def built(name):
+        threads[name].join()
+        if isinstance(builds[name], BaseException):
+            raise builds[name]
+        return builds[name]
+
+    log(f"[2] built coflow_assign.cu in {built('coflow_assign'):.2f} s "
         f"({' '.join(_build.NVCC_FLAGS)})")
     for line in _build.build_log("coflow_assign").splitlines():
         if "ptxas info" in line:
@@ -261,6 +317,9 @@ def main() -> int:
         f"every choice in [0, {inst526.K})")
     log(f"[5] plain version at 4,096 flows: {1e3 * plain_4096_s:.1f} ms")
 
+    fa_row = serve_phases(torch, dev, built, sync_time, event_ms)
+    log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
+
     log(json.dumps({"kernels": [{
         "name": "coflow_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
@@ -268,11 +327,208 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}, fa_row]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def device_time_by_kind(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; (wall ms, {kind: device ms},
+    [(kernel, device ms, calls)] top 8). Kinds: the flash kernel, matrix
+    products (cuBLAS's nvjet, GEMM and GEMV kernels), everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if not us or getattr(ev, "device_type", None) is not None and \
+                "CUDA" not in str(ev.device_type):
+            continue
+        name = ev.key
+        low = name.lower()
+        if "flash_attention_kernel" in name:
+            kind = "flash_attention"
+        elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass",
+                                    "xmma", "sm90_", "splitk")):
+            kind = "matmul"
+        else:
+            kind = "other"
+        kinds[kind] += us / 1e3
+        rows.append((name[:70], us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, kinds, rows[:8]
+
+
+def serve_phases(torch, dev, built, sync_time, event_ms):
+    """Phases 6-8: the flash-attention kernel and the serving path."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import apply_rope, param_count
+    from repro_torch.models.dense import DenseLM
+    from repro_torch.serve.engine import build_decode, build_prefill
+
+    # ---- 6. build -------------------------------------------------------
+    log(f"[6] built flash_attention.cu in {built('flash_attention'):.2f} s")
+    for line in _build.build_log("flash_attention").splitlines():
+        if "ptxas info" in line or "spill" in line:
+            log(f"[6]   {line.strip()}")
+
+    # ---- 7. kernel vs plain version on the card ------------------------
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    max_err = 0.0
+
+    def fa_vs_plain(label, q, k, v, causal, window):
+        nonlocal max_err
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+        err = float((got.float() - want.float()).abs().max())
+        bad = int((~torch.isclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)).sum())
+        max_err = max(max_err, err)
+        log(f"[7] {label}: max|kernel - plain| {err:.3e}, {bad} elements "
+            f"outside atol=rtol={tol:g}")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash kernel != plain version on {label}")
+
+    for B, S, H, KVH, Dh, causal, window, dt in FA_CASES:
+        rng = np.random.default_rng(S * H + Dh)
+        q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=dev).to(dtypes[dt])
+            for shape in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
+        fa_vs_plain(f"case {(B, S, H, KVH, Dh, causal, window, dt)}", q, k, v,
+                    causal, window)
+    log("[7] block shapes: the kernel's tiles are fixed at 64 x 64 (S need "
+        "not divide), so there is no block size to vary")
+
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").config,
+                              attention_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    model, t_build = sync_time(lambda: DenseLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    log(f"[7] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}; {param_count(model):,} weights "
+        f"drawn on the card in {t_build:.2f} s")
+    with torch.inference_mode():
+        pos = torch.arange(SERVE_S, device=dev).expand(SERVE_B, SERVE_S)
+        q, k, v = model._qkv(model._norm(model._embed(prompts), 0, "ln1"), 0)
+        q = apply_rope(q, pos, model.inv_freq, model.rot)
+        k = apply_rope(k, pos, model.inv_freq, model.rot)
+        fa_vs_plain(f"layer-0 q/k/v of the prefill {tuple(q.shape)} / "
+                    f"{tuple(k.shape)}", q, k, v, True, None)
+        reps = 5
+        fa.flash_attention_cuda(q, k, v)  # warm
+        ms = event_ms(lambda: fa.flash_attention_cuda(q, k, v), reps)
+        plain_ms = event_ms(lambda: fa.flash_attention_plain(q, k, v), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa()
+        sdpa_ms = event_ms(sdpa, reps)
+    B, S, H, Dh = q.shape
+    flops = 2.0 * B * H * S * S * Dh  # causal: half of QK^T and of PV
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops_s, bytes_s = flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
+    log(f"[7] at {(B, S, H, k.shape[2], Dh)} bf16 causal: kernel {ms:.3f} ms "
+        f"(CUDA events, {reps} launches after a warm one, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s); plain version {plain_ms:.3f} ms; "
+        f"SDPA {sdpa_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops:.4e} FLOP at 989 TFLOP/s, {n_bytes:,} B at 3.35 TB/s)")
+
+    # ---- 8. serving at full width ---------------------------------------
+    prefill, decode = build_prefill(model), build_decode(model)
+    s_max = SERVE_S + SERVE_STEPS
+    cache = model.make_caches(SERVE_B, s_max)
+    fa.launches = 0
+    (logits, cache), t_prefill = sync_time(
+        lambda: prefill(cache, {"tokens": prompts}))
+    prefill_launches = fa.launches
+    steps = [logits]
+    seq = prompts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        nxt = steps[-1][:, -1].argmax(-1)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        logits, cache = decode(cache, nxt)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    serve_launches = fa.launches
+    log(f"[8] prefill B={SERVE_B} x S={SERVE_S}: {t_prefill:.3f} s, "
+        f"{prefill_launches} flash kernel launches; {SERVE_STEPS} greedy "
+        f"decode steps: {1e3 * t_decode / SERVE_STEPS:.2f} ms per step "
+        f"({1e3 * t_decode / SERVE_STEPS / SERVE_B:.3f} ms per token of the "
+        f"batch); launches over prefill + decode: {serve_launches}")
+    if prefill_launches != cfg.n_layers or serve_launches != cfg.n_layers:
+        raise AssertionError(f"the prefill must launch the flash kernel once "
+                             f"per layer ({cfg.n_layers}) and the decode "
+                             f"never; counted {prefill_launches} and "
+                             f"{serve_launches}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in steps) or \
+            logits.shape != (SERVE_B, 1, cfg.vocab):
+        raise AssertionError("serving logits must be finite, (B, 1, V)")
+    if int(cache.length.min()) != s_max or seq.shape != (SERVE_B, s_max):
+        raise AssertionError("the cache must hold prompt + decoded tokens")
+    full, t_full = sync_time(lambda: model._forward_train({"tokens": seq}))
+    last, ref = logits[:, -1].float(), full[:, -1].float()
+    err = float((last - ref).abs().max())
+    bad = int((~torch.isclose(last, ref, atol=SERVE_TOL, rtol=SERVE_TOL)).sum())
+    log(f"[8] last decode logits vs _forward_train on all {s_max} tokens "
+        f"({t_full:.3f} s): max|diff| {err:.4f}, {bad} outside "
+        f"atol=rtol={SERVE_TOL}; logits |max| {float(ref.abs().max()):.3f}")
+    if bad:
+        raise AssertionError("decode logits differ from the forward pass")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8] peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
+
+    # where the time goes: one more prefill and one decode step, traced
+    cache2 = model.make_caches(SERVE_B, s_max)
+    _, t_prefill2 = sync_time(lambda: prefill(cache2, {"tokens": prompts}))
+    log(f"[8] second prefill (warm): {t_prefill2:.3f} s")
+    cache3 = model.make_caches(SERVE_B, s_max)
+    for label, fn in (
+            ("prefill", lambda: prefill(cache3, {"tokens": prompts})),
+            ("decode step", lambda: decode(cache2, seq[:, SERVE_S:SERVE_S + 1]))):
+        wall_ms, kinds, top = device_time_by_kind(torch, fn)
+        busy = sum(kinds.values())
+        if busy == 0:
+            log(f"[8] profile {label}: no device time in the trace "
+                f"(not measured)")
+            continue
+        log(f"[8] profile {label}: wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms (idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+            + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                        for k, v in kinds.items()))
+        for name, kms, calls in top:
+            log(f"[8]   {kms:9.3f} ms  {calls:4d}x  {name}")
+
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:32",
+            "launches": serve_launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_ms}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-  coflow_assign  — the paper's tau-aware greedy cross-core assignment
-                   (Alg. 1 lines 5-17), CUDA C++ in ``csrc/coflow_assign.cu``;
-                   replaces the Pallas kernel ``_assign_kernel``.
+  coflow_assign    — the paper's tau-aware greedy cross-core assignment
+                     (Alg. 1 lines 5-17), CUDA C++ in
+                     ``csrc/coflow_assign.cu``; replaces the Pallas kernel
+                     ``_assign_kernel``.
+  flash_attention  — blocked causal/local GQA self-attention forward, CUDA
+                     C++ in ``csrc/flash_attention.cu``; replaces the Pallas
+                     kernel ``_fa_kernel``.
 
-The public entry points are in ``ops`` (``ops.coflow_assign``); each kernel's
+The public entry points are in ``ops`` (``ops.coflow_assign``,
+``ops.flash_attention``); each kernel's
 module holds its wrapper, its plain version and its launch count. The CUDA
 sources are compiled on first use (``_build``), so importing this package
 needs neither ``nvcc`` nor a GPU.

@@ -8,8 +8,9 @@ from __future__ import annotations
 import torch
 
 from .coflow_assign import coflow_assign_cuda, coflow_assign_plain
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 
-__all__ = ["coflow_assign"]
+__all__ = ["coflow_assign", "flash_attention"]
 
 
 def coflow_assign(fi: torch.Tensor, fj: torch.Tensor, sizes: torch.Tensor,
@@ -33,3 +34,40 @@ def coflow_assign(fi: torch.Tensor, fj: torch.Tensor, sizes: torch.Tensor,
     if dev.type == "cpu":
         return coflow_assign_plain(*args, delta, n_ports=n_ports)
     raise ValueError(f"coflow_assign runs on cuda or cpu, not {dev.type}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softmax_scale: float | None = None,
+                    q_positions: torch.Tensor | None = None,
+                    kv_positions: torch.Tensor | None = None,
+                    kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Self-attention flash kernel: ``(B, S, H, Dh)`` in ``q.dtype``.
+
+    The kernel's contract is the reference kernel's: q and k have one
+    length and positions are implicitly 0..S-1. The reference wrapper
+    accepts and drops ``q_positions``, ``kv_positions`` and ``kv_valid``,
+    which is wrong for a cached call; here any of them, or ``Sq != Sk``,
+    raises ``ValueError``. Cached and decode calls belong to
+    ``models.attention.attend_xla``. The kernel tiles S in fixed blocks of
+    64 rows and masks the ragged tail itself, so no block size is chosen
+    here.
+    """
+    if q_positions is not None or kv_positions is not None \
+            or kv_valid is not None:
+        raise ValueError(
+            "flash_attention takes no q_positions, kv_positions or kv_valid: "
+            "the kernel attends over positions 0..S-1; cached calls go to "
+            "attend_xla")
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"flash_attention is self-attention: Sq={q.shape[1]} != "
+            f"Sk={k.shape[1]}; cached calls go to attend_xla")
+    dev = q.device
+    if dev.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softmax_scale=softmax_scale)
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softmax_scale=softmax_scale)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {dev.type}")

@@ -1,0 +1,174 @@
+"""Shared neural building blocks of the model zoo, in PyTorch.
+
+Port of ``repro.models.common``. Conventions kept from the reference:
+
+  - weights of a layer stack are stacked with a leading ``layers`` dim and
+    stored in the reference's layout (``(L, D, F)`` for ``"bsd,df->bsf"``),
+    so weights carry across as copies with no transpose;
+  - compute dtype and weights bf16 by default; norm statistics, softmax and
+    the loss in fp32.
+
+``constrain`` is the identity (no mesh yet); ``maybe_remat`` waits for the
+training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Iterable, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["ParamFactory", "rms_norm", "layer_norm", "rope_frequencies",
+           "apply_rope", "swiglu", "softmax_cross_entropy", "param_count",
+           "tree_bytes", "constrain"]
+
+
+class ParamFactory:
+    """Seeded initialisation of the port's weights.
+
+    ``dense`` draws the reference's truncated normal (``N(0, 1)`` cut to
+    ``[-2, 2]``, times ``scale`` or ``1/sqrt(fan_in)``, in fp32, then cast)
+    from ``generator``. The numbers differ from ``jax.random``'s for the same
+    seed; tests that compare the two frameworks carry weights across instead
+    (``models.weights.params_from_jax``). On the ``meta`` device every
+    method allocates nothing and draws nothing.
+    """
+
+    def __init__(self, generator: torch.Generator | None, *,
+                 dtype: torch.dtype, device: torch.device):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = device
+
+    def dense(self, shape: tuple[int, ...], *, scale: float | None = None,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+        dtype = dtype or self.dtype
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        w = torch.empty(shape, dtype=torch.float32, device=self.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=self.generator)
+        return (w * std).to(dtype)
+
+    def zeros(self, shape: tuple[int, ...], *,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+
+    def ones(self, shape: tuple[int, ...], *,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
+
+
+def _leaves(tree) -> Iterable[torch.Tensor]:
+    if isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a module, a (nested) dict or a list."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def param_count(tree) -> int:
+    """Elements of every tensor in a module, a (nested) dict or a list."""
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
+    """Sharding constraint of the reference; the identity without a mesh."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Normalization: statistics in fp32, result in the input's dtype
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (full or partial)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, *, base: float = 10000.0,
+                     fraction: float = 1.0) -> tuple[torch.Tensor, int]:
+    """Inverse frequencies (fp32, on the CPU) of the rotated prefix of the
+    head dim, and its width. Computed in float64 numpy, then cast, as the
+    reference does."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    inv = 1.0 / (base ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    return torch.from_numpy(inv.astype(np.float32)), rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor, rot: int) -> torch.Tensor:
+    """Rotate the first ``rot`` dims of each head of ``x (..., S, H, Dh)``
+    at ``positions (..., S)``; pass the rest through.
+
+    ``x`` times the fp32 cos/sin promotes to fp32, as in JAX; the rotated
+    part is cast back to ``x.dtype``.
+    """
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    ang = positions[..., None].float() * inv_freq  # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP and loss
+# ---------------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: ``down(silu(x @ gate) * (x @ up))``."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over unmasked positions, computed in fp32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -1,0 +1,286 @@
+"""Dense decoder-only transformer LM (llama/qwen/stablelm-style, GQA).
+
+Port of ``repro.models.dense`` for the text-only dense configs:
+tinyllama-1.1b, qwen1.5-{0.5b,4b} (QKV bias) and stablelm-1.6b (partial
+RoPE, LayerNorm). The vision prefix (``n_prefix_tokens``, InternVL2) waits
+(ROADMAP queue 1, item 9).
+
+``DenseLM`` is an ``nn.Module`` that holds the reference's stacked weights
+in the reference's layout: ``blocks.wq (L, D, H*Dh)`` multiplies as
+``"bsd,df->bsf"``, ``embed``/``unembed (V, D)``. Its state dict names are
+the reference's tree paths (``embed``, ``blocks.wq``, ``ln_f``, ...), so
+``models.weights.params_from_jax`` carries weights across as copies. The
+layers run as a Python loop over the leading ``layers`` dim.
+
+Attention under ``attention_impl="pallas"``: a fresh prefill (the cache is
+empty) attends over the in-flight K/V through the CUDA flash-attention
+kernel, one launch per layer, as the reference does for its ``"chunked"``
+impl. Cached calls (decode, or a prefill into a non-empty cache) go to
+``attend_xla`` with the cache's positions and ``kv_valid``. The reference
+sends those cached calls to its flash kernel, whose wrapper drops the
+positions and ``kv_valid`` and attends a decode query as if it stood at
+position 0; the port does not copy that fault (ROADMAP queue 3).
+
+``batch`` dict keys: ``tokens (B, S)`` int, and ``labels (B, S)`` for
+``loss`` (-1 = masked).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from .api import ModelConfig
+from .attention import (KVCache, attend, kv_cache_init, kv_cache_layer_update,
+                        kv_cache_slot_positions)
+from .common import (ParamFactory, apply_rope, layer_norm, rms_norm,
+                     rope_frequencies, softmax_cross_entropy)
+
+__all__ = ["DenseLM", "param_shapes"]
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """State-dict name -> shape of a dense model's weights."""
+    L, D, H, KVH, Dh, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.dh, cfg.d_ff)
+    V = cfg.padded_vocab
+    shapes = {
+        "embed": (V, D),
+        "blocks.wq": (L, D, H * Dh),
+        "blocks.wk": (L, D, KVH * Dh),
+        "blocks.wv": (L, D, KVH * Dh),
+        "blocks.wo": (L, H * Dh, D),
+        "blocks.ln1": (L, D),
+        "blocks.ln2": (L, D),
+        "blocks.w_gate": (L, D, Fd),
+        "blocks.w_up": (L, D, Fd),
+        "blocks.w_down": (L, Fd, D),
+    }
+    if cfg.qkv_bias:
+        shapes.update({"blocks.bq": (L, H * Dh), "blocks.bk": (L, KVH * Dh),
+                       "blocks.bv": (L, KVH * Dh)})
+    if cfg.norm == "layer":
+        shapes.update({"blocks.ln1b": (L, D), "blocks.ln2b": (L, D)})
+    shapes["ln_f"] = (D,)
+    if cfg.norm == "layer":
+        shapes["ln_fb"] = (D,)
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (V, D)
+    return shapes
+
+
+class DenseLM(nn.Module):
+    """Dense LM with weights drawn from ``generator`` on ``device``.
+
+    ``device=None`` means CUDA (see ``resolve_device``); ``generator=None``
+    means a generator on that device seeded with 0. ``DenseLM.from_state``
+    builds one from a state dict instead (no weights are drawn).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise ValueError(f"DenseLM takes the dense family, not "
+                             f"{cfg.family!r}")
+        if cfg.n_prefix_tokens:
+            raise NotImplementedError(
+                "the vision prefix (n_prefix_tokens) is not ported yet: "
+                "ROADMAP queue 1, item 9")
+        self.cfg = cfg
+        dev = torch.device("meta") if str(device) == "meta" \
+            else resolve_device(device)
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+        f = ParamFactory(generator, dtype=cfg.dtype, device=dev)
+        blocks = {}
+        for name, shape in param_shapes(cfg).items():
+            base = name.split(".")[-1]
+            if base in ("ln1", "ln2", "ln_f"):
+                t = f.ones(shape)
+            elif base in ("bq", "bk", "bv", "ln1b", "ln2b", "ln_fb"):
+                t = f.zeros(shape)
+            else:  # the reference draws the embedding at scale 0.02
+                t = f.dense(shape, scale=0.02 if name == "embed" else None)
+            param = nn.Parameter(t, requires_grad=False)
+            if name.startswith("blocks."):
+                blocks[base] = param
+            else:
+                self.register_parameter(name, param)
+        self.blocks = nn.ParameterDict(blocks)
+        inv_freq, self.rot = rope_frequencies(
+            cfg.dh, base=cfg.rope_base, fraction=cfg.rope_fraction)
+        self.register_buffer("inv_freq", inv_freq.to(dev), persistent=False)
+
+    @classmethod
+    def from_state(cls, cfg: ModelConfig,
+                   state: dict[str, torch.Tensor]) -> "DenseLM":
+        """A model whose weights are ``state``'s tensors (not copied), on
+        their device; the names and shapes must be :func:`param_shapes`'."""
+        want = param_shapes(cfg)
+        got = {k: tuple(v.shape) for k, v in state.items()}
+        if got != want:
+            raise ValueError(f"state does not match {cfg.name}: expected "
+                             f"{want}, got {got}")
+        devices = {t.device for t in state.values()}
+        if len(devices) != 1:
+            raise ValueError(f"state spans devices {devices}")
+        model = cls(cfg, device="meta")
+        model.load_state_dict(state, assign=True)
+        for p in model.parameters():
+            p.requires_grad_(False)
+        model.inv_freq = rope_frequencies(
+            cfg.dh, base=cfg.rope_base, fraction=cfg.rope_fraction
+        )[0].to(devices.pop())
+        return model
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------- internals
+    def _w(self, name: str, layer: int) -> torch.Tensor:
+        return self.blocks[name][layer]
+
+    def _norm(self, x: torch.Tensor, layer: int | None, which: str
+              ) -> torch.Tensor:
+        """``which`` is ``ln1``/``ln2`` of ``layer``, or ``ln_f``."""
+        if layer is None:
+            g, b = self.ln_f, getattr(self, "ln_fb", None)
+        else:
+            g = self._w(which, layer)
+            b = self._w(which + "b", layer) if self.cfg.norm == "layer" \
+                else None
+        if self.cfg.norm == "layer":
+            return layer_norm(x, g, b)
+        return rms_norm(x, g)
+
+    def _qkv(self, h: torch.Tensor, layer: int):
+        cfg = self.cfg
+        B, S, _ = h.shape
+        q = h @ self._w("wq", layer)
+        k = h @ self._w("wk", layer)
+        v = h @ self._w("wv", layer)
+        if cfg.qkv_bias:
+            q = q + self._w("bq", layer)
+            k = k + self._w("bk", layer)
+            v = v + self._w("bv", layer)
+        return (q.reshape(B, S, cfg.n_heads, cfg.dh),
+                k.reshape(B, S, cfg.n_kv_heads, cfg.dh),
+                v.reshape(B, S, cfg.n_kv_heads, cfg.dh))
+
+    def _mlp(self, hn: torch.Tensor, layer: int) -> torch.Tensor:
+        g = F.silu(hn @ self._w("w_gate", layer))
+        u = hn @ self._w("w_up", layer)
+        return (g * u) @ self._w("w_down", layer)
+
+    def _attn_out(self, o: torch.Tensor, layer: int) -> torch.Tensor:
+        return o.reshape(o.shape[0], o.shape[1], -1) @ self._w("wo", layer)
+
+    def _block_train(self, h: torch.Tensor, layer: int,
+                     positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        hn = self._norm(h, layer, "ln1")
+        q, k, v = self._qkv(hn, layer)
+        q = apply_rope(q, positions, self.inv_freq, self.rot)
+        k = apply_rope(k, positions, self.inv_freq, self.rot)
+        if cfg.attention_impl == "pallas":  # positions are 0..S-1 here
+            o = attend(q, k, v, impl="pallas", causal=True,
+                       window=cfg.window or None)
+        else:
+            o = attend(q, k, v, impl=cfg.attention_impl, causal=True,
+                       q_positions=positions, kv_positions=positions,
+                       window=cfg.window or None)
+        h = h + self._attn_out(o, layer)
+        return h + self._mlp(self._norm(h, layer, "ln2"), layer)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens.long()].to(self.cfg.dtype)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        table = self.embed if cfg.tie_embeddings else self.unembed
+        logits = h @ table.T
+        if cfg.padded_vocab != cfg.vocab:  # mask the padding rows
+            logits = logits.clone()
+            logits[..., cfg.vocab:] = -1e9
+        return logits
+
+    @torch.inference_mode()
+    def _forward_train(self, batch: dict) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of the whole sequence (forward only)."""
+        tokens = batch["tokens"].to(self.device)
+        h = self._embed(tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device).expand(B, S)
+        for layer in range(self.cfg.n_layers):
+            h = self._block_train(h, layer, positions)
+        return self._logits(self._norm(h, None, "ln_f"))
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
+        logits = self._forward_train(batch)
+        labels = batch["labels"].to(logits.device)
+        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
+
+    # ----------------------------------------------------------------- serve
+    def make_caches(self, batch: int, s_max: int) -> KVCache:
+        cfg = self.cfg
+        return kv_cache_init(cfg.n_layers, batch, s_max, cfg.n_kv_heads,
+                             cfg.dh, cfg.dtype, device=self.device)
+
+    @torch.inference_mode()
+    def _step(self, cache: KVCache, tokens: torch.Tensor, fresh: bool
+              ) -> tuple[torch.Tensor, KVCache]:
+        """Shared prefill/decode: append ``Sq`` tokens to the cache (in
+        place) and return the last position's logits ``(B, 1, V)``.
+
+        ``fresh`` (the cache is empty) lets ``attention_impl="pallas"``
+        attend over the in-flight K/V with the flash kernel; every other
+        call attends over the cache with ``attend_xla``.
+        """
+        cfg = self.cfg
+        tokens = tokens.to(self.device)
+        h = self._embed(tokens)
+        B, Sq, _ = h.shape
+        start = cache.length
+        qpos = (start[:, None]
+                + torch.arange(Sq, dtype=torch.int32, device=h.device)[None, :])
+        new_pos = kv_cache_slot_positions(cache.positions, qpos, start)
+        kv_valid = new_pos >= 0
+        window = cfg.window or None
+        for layer in range(cfg.n_layers):
+            hn = self._norm(h, layer, "ln1")
+            q, k, v = self._qkv(hn, layer)
+            q = apply_rope(q, qpos, self.inv_freq, self.rot)
+            k = apply_rope(k, qpos, self.inv_freq, self.rot)
+            ck, cv = kv_cache_layer_update(cache.k[layer], cache.v[layer],
+                                           k, v, start)
+            if fresh and cfg.attention_impl == "pallas":
+                o = attend(q, k, v, impl="pallas", causal=True, window=window)
+            else:
+                o = attend(q, ck, cv, impl="xla", causal=True,
+                           q_positions=qpos, kv_positions=new_pos,
+                           window=window, kv_valid=kv_valid)
+            h = h + self._attn_out(o, layer)
+            h = h + self._mlp(self._norm(h, layer, "ln2"), layer)
+        logits = self._logits(self._norm(h[:, -1:], None, "ln_f"))
+        return logits, KVCache(k=cache.k, v=cache.v, length=start + Sq,
+                               positions=new_pos)
+
+    def prefill(self, cache: KVCache, batch: dict
+                ) -> tuple[torch.Tensor, KVCache]:
+        """Append the prompt ``batch["tokens"]``; last logits ``(B, 1, V)``.
+
+        Reads ``cache.length`` on the host once, to tell a fresh prefill
+        (the flash kernel's case) from one into a non-empty cache.
+        """
+        fresh = not bool(cache.length.any())
+        return self._step(cache, batch["tokens"], fresh)
+
+    def decode_step(self, cache: KVCache, tokens: torch.Tensor
+                    ) -> tuple[torch.Tensor, KVCache]:
+        """Append ``tokens (B, 1)``; logits ``(B, 1, V)``."""
+        return self._step(cache, tokens, False)

@@ -1,0 +1,60 @@
+"""Weights from the JAX package's parameter tree into the port's ``DenseLM``.
+
+The reference's ``model.init(key)[0]`` is a nested dict: ``embed``,
+``blocks.{wq, wk, wv, wo, ln1, ln2, w_gate, w_up, w_down[, bq, bk, bv,
+ln1b, ln2b]}``, ``ln_f[, ln_fb]``, ``[unembed]``. The port keeps the same
+names and layouts, so each leaf is one copy with no transpose. The tree is
+taken as numpy arrays (``np.asarray`` of each leaf), so this module needs
+no JAX. bfloat16 has no numpy dtype of its own: a leaf of the ``ml_dtypes``
+bfloat16 type is widened to float32 first, which is exact.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .api import ModelConfig
+from .dense import param_shapes
+
+__all__ = ["params_from_jax"]
+
+_NUMPY_FLOATS = (np.float16, np.float32, np.float64)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None,
+                    dtype: torch.dtype | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """The port's dense state dict from the reference's parameter tree.
+
+    Every leaf lands on ``device`` (default: the CPU) in ``dtype`` (default:
+    ``cfg.dtype``). Raises ``ValueError`` when the tree's names or shapes are
+    not those of ``cfg``. Build the model with ``DenseLM.from_state``.
+    """
+    flat = _flatten(tree)
+    want = param_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in flat.items()}
+    if got != want:
+        raise ValueError(f"the tree does not match {cfg.name}: expected "
+                         f"{want}, got {got}")
+    dtype = dtype or cfg.dtype
+    state = {}
+    for name in want:
+        arr = flat[name]
+        if arr.dtype.type not in _NUMPY_FLOATS:
+            arr = arr.astype(np.float32)
+        state[name] = torch.from_numpy(np.array(arr)).to(  # a copy
+            device=device or "cpu", dtype=dtype)
+    return state

@@ -1,0 +1,334 @@
+"""The port's attention, norms, RoPE and KV cache vs the reference, on the CPU.
+
+``repro_torch.kernels.flash_attention.flash_attention_plain`` (what the
+port runs on the CPU, and what the CUDA kernel is held to on the card) is
+compared with the Pallas kernel ``flash_attention_fwd`` in interpret mode
+and with ``attention_ref``, on the CASES of ``test_kernels_attention.py``:
+1e-5 in fp32 (sums in another order), 2e-2 in bf16 (the output's rounding).
+``attend_xla``, the norms, RoPE and the cache are compared with
+``repro.models`` on the same numpy inputs. Run with
+``REPRO_PALLAS_INTERPRET=1`` as the JAX suite is (off a TPU the Pallas
+kernels run in interpret mode either way).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.attention as ref_attn
+import repro.models.common as ref_common
+import repro_torch.models.attention as port_attn
+import repro_torch.models.common as port_common
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.ref import attention_ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops as port_ops
+
+# (B, S, H, KVH, Dh, causal, window, dtype, block): test_kernels_attention.py
+CASES = [
+    (2, 128, 4, 4, 64, True, None, "float32", 64),
+    (2, 256, 4, 2, 64, True, None, "float32", 128),
+    (1, 256, 8, 1, 128, True, None, "bfloat16", 128),
+    (2, 256, 4, 1, 64, True, 128, "bfloat16", 64),
+    (1, 128, 2, 2, 64, False, None, "float32", 64),
+    (1, 512, 4, 4, 128, True, 256, "float32", 128),
+    (3, 192, 6, 3, 64, True, None, "bfloat16", 64),
+]
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BF16_ULP = 2.0 ** -8  # relative spacing of bf16 just above a power of two
+
+
+def _qkv(seed, B, S, H, KVH, Dh, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, Dh)).astype(np.float32) * scale
+    k = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32) * scale
+    v = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32)
+    return q, k, v
+
+
+def _both(arrays, dtype):
+    """The same values in both frameworks (bf16 rounds alike in both)."""
+    j = [jnp.asarray(a, JNP[dtype]) for a in arrays]
+    t = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrays]
+    return j, t
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:7]) for c in CASES])
+def test_plain_version_matches_pallas_kernel_and_oracle(case):
+    B, S, H, KVH, Dh, causal, window, dt, blk = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(S * H + Dh, B, S, H, KVH, Dh), dt)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TORCH[dt] and got.shape == (B, S, H, Dh)
+    kern = flash_attention_fwd(jq, jk, jv, causal=causal, window=window,
+                               block_q=blk, block_k=blk, interpret=True)
+    ref = attention_ref(jq, jk, jv, causal=causal, window=window)
+    tol = 2e-2 if dt == "bfloat16" else 1e-5
+    for want in (kern, ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (128, 64), (64, 128), (256, 256)])
+def test_plain_version_matches_every_pallas_tiling(blocks):
+    """The Pallas kernel's block shapes carry no meaning: each tiling of it
+    agrees with the one plain version at 1e-5."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, 1, 256, 2, 2, 64), "float32")
+    kern = flash_attention_fwd(jq, jk, jv, causal=True, block_q=blocks[0],
+                               block_k=blocks[1], interpret=True)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(kern), atol=1e-5, rtol=1e-5)
+
+
+def test_ops_flash_attention_runs_plain_version_on_cpu():
+    _, (tq, tk, tv) = _both(_qkv(3, 2, 100, 4, 2, 64), "float32")
+    before = fa.launches
+    got = port_ops.flash_attention(tq, tk, tv, causal=True, window=40)
+    want = fa.flash_attention_plain(tq, tk, tv, causal=True, window=40)
+    assert torch.equal(got, want)
+    assert fa.launches == before  # no kernel on the CPU
+
+
+def test_ops_flash_attention_refuses_what_the_kernel_cannot_honour():
+    _, (tq, tk, tv) = _both(_qkv(3, 2, 16, 4, 2, 64), "float32")
+    pos = torch.arange(16).expand(2, 16)
+    with pytest.raises(ValueError, match="kv_valid"):
+        port_ops.flash_attention(tq, tk, tv, kv_valid=pos >= 0)
+    with pytest.raises(ValueError, match="q_positions"):
+        port_ops.flash_attention(tq, tk, tv, q_positions=pos)
+    with pytest.raises(ValueError, match="Sq=1"):
+        port_ops.flash_attention(tq[:, -1:], tk, tv)
+    with pytest.raises(ValueError, match="Sq=1"):
+        port_attn.attend(tq[:, -1:], tk, tv, impl="pallas", causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_attn.attend(tq, tk, tv, impl="chunked", causal=True)
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    _, (tq, tk, tv) = _both(_qkv(3, 1, 8, 2, 2, 64), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(tq, tk, tv)
+
+
+# ---------------------------------------------------------------------------
+# attend_xla: positions, window, kv_valid
+# ---------------------------------------------------------------------------
+
+XLA_CASES = [
+    # (B, Sq, Sk, H, KVH, causal, window, with positions, with kv_valid)
+    (2, 12, 12, 4, 2, True, None, False, False),
+    (2, 12, 12, 4, 4, False, None, False, False),
+    (2, 12, 12, 6, 2, True, 5, False, False),
+    (2, 1, 20, 4, 2, True, None, True, True),      # a decode step
+    (2, 4, 20, 4, 1, True, 7, True, True),         # chunk into a cache
+    (3, 9, 9, 4, 2, False, 3, True, False),
+]
+
+
+def _positions(rng, B, Sq, Sk):
+    start = rng.integers(0, Sk - Sq + 1, B)
+    qpos = (start[:, None] + np.arange(Sq)[None, :]).astype(np.int32)
+    kpos = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    kpos[kpos >= (start + Sq)[:, None]] = -1  # empty slots
+    return qpos, kpos
+
+
+@pytest.mark.parametrize("case", XLA_CASES, ids=[str(c) for c in XLA_CASES])
+def test_attend_xla_matches_reference(case):
+    B, Sq, Sk, H, KVH, causal, window, with_pos, with_valid = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q = rng.standard_normal((B, Sq, H, 16)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KVH, 16)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KVH, 16)).astype(np.float32)
+    kw_np = {}
+    if with_pos:
+        qpos, kpos = _positions(rng, B, Sq, Sk)
+        kw_np.update(q_positions=qpos, kv_positions=kpos)
+        if with_valid:
+            kw_np["kv_valid"] = kpos >= 0
+    want = ref_attn.attend_xla(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, **{n: jnp.asarray(a) for n, a in kw_np.items()})
+    got = port_attn.attend_xla(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window,
+        **{n: torch.from_numpy(a) for n, a in kw_np.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_attend_xla_row_with_no_visible_key_averages_values():
+    """The finite NEG_INF: a fully masked row is the mean of v, not NaN
+    (``attention_ref`` would give NaN with its -inf)."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 1, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 6, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 6, 2, 8)).astype(np.float32)
+    valid = np.ones((2, 6), bool)
+    valid[1] = False
+    want = ref_attn.attend_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=False, kv_valid=jnp.asarray(valid))
+    got = port_attn.attend_xla(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=False,
+                               kv_valid=torch.from_numpy(valid))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got[1, 0].numpy(), v[1].mean(0), atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_attend_xla_casts_probs_to_bf16_before_pv():
+    """Probabilities (0.2, 0.3, 0.5) and values (300, -200, 0) cancel
+    exactly in fp32; rounded to bf16 before P.V, as the reference does, they
+    leave about -0.1. The port must give the reference's -0.1."""
+    logits = np.log(np.array([0.2, 0.3, 0.5], np.float32))
+    q = np.ones((1, 1, 1, 1), np.float32)
+    k = logits.reshape(1, 3, 1, 1)
+    v = np.array([300.0, -200.0, 0.0], np.float32).reshape(1, 3, 1, 1)
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], "bfloat16")
+    want = float(np.asarray(ref_attn.attend_xla(jq, jk, jv, causal=False),
+                            np.float32).ravel()[0])
+    got = port_attn.attend_xla(tq, tk, tv, causal=False)
+    assert got.dtype == torch.bfloat16
+    probs = torch.softmax((tq * tk).float().reshape(3), dim=0)
+    uncast = float((probs * tv.float().reshape(3)).sum())
+    assert abs(want - uncast) > 0.05  # the cast is visible at this input
+    assert abs(float(got.float()) - want) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE: statistics and rotation in fp32, result in the input dtype
+# ---------------------------------------------------------------------------
+
+
+def _assert_bf16_close(got, want):
+    """At most one bf16 ulp apart anywhere, and equal almost everywhere:
+    the fp32 work is the same, only a transcendental's last bit may
+    differ between the frameworks before the final rounding."""
+    g, w = _f32(got), _f32(want)
+    assert np.all(np.abs(g - w) <= BF16_ULP * np.abs(w) + 1e-30)
+    assert np.mean(g == w) > 0.99
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_norms_match_reference(dt):
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((3, 7, 48)) * 4 + 1).astype(np.float32)
+    g = rng.uniform(0.5, 1.5, 48).astype(np.float32)
+    b = rng.standard_normal(48).astype(np.float32)
+    (jx, jg, jb), (tx, tg, tb) = _both([x, g, b], dt)
+    pairs = [(port_common.rms_norm(tx, tg), ref_common.rms_norm(jx, jg)),
+             (port_common.layer_norm(tx, tg, tb),
+              ref_common.layer_norm(jx, jg, jb))]
+    for got, want in pairs:
+        assert got.dtype == TORCH[dt]
+        if dt == "float32":
+            np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-6,
+                                       rtol=1e-6)
+        else:
+            _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.25])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rope_matches_reference(dt, fraction):
+    inv_t, rot_t = port_common.rope_frequencies(64, fraction=fraction)
+    inv_j, rot_j = ref_common.rope_frequencies(64, fraction=fraction)
+    assert rot_t == rot_j
+    np.testing.assert_array_equal(inv_t.numpy(), np.asarray(inv_j))
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 9, 3, 64)).astype(np.float32)
+    pos = np.stack([np.arange(9), np.arange(100, 109)]).astype(np.int32)
+    (jx,), (tx,) = _both([x], dt)
+    got = port_common.apply_rope(tx, torch.from_numpy(pos), inv_t, rot_t)
+    want = ref_common.apply_rope(jx, jnp.asarray(pos), inv_j, rot_j)
+    assert got.dtype == TORCH[dt]
+    np.testing.assert_array_equal(_f32(got)[..., rot_t:], x[..., rot_t:]
+                                  if dt == "float32" else _f32(tx)[..., rot_t:])
+    if dt == "float32":
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5,
+                                   rtol=1e-5)
+    else:
+        _assert_bf16_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+CACHE_CASES = [  # (B, S_max, Sq, starts)
+    (2, 10, 4, (0, 3)),
+    (2, 10, 1, (9, 4)),      # decode at the last slot
+    (2, 6, 4, (4, 5)),       # wraps modulo S_max
+    (2, 6, 6, (0, 2)),       # Sq == S_max
+    (3, 5, 8, (0, 1, 7)),    # Sq > S_max: only the trailing S_max written
+]
+
+
+@pytest.mark.parametrize("case", CACHE_CASES, ids=[str(c) for c in CACHE_CASES])
+def test_kv_cache_update_and_positions_match_reference(case):
+    B, s_max, sq, starts = case
+    rng = np.random.default_rng(s_max * 10 + sq)
+    layer_k = rng.standard_normal((B, s_max, 2, 4)).astype(np.float32)
+    layer_v = rng.standard_normal((B, s_max, 2, 4)).astype(np.float32)
+    new_k = rng.standard_normal((B, sq, 2, 4)).astype(np.float32)
+    new_v = rng.standard_normal((B, sq, 2, 4)).astype(np.float32)
+    positions = rng.integers(-1, 50, (B, s_max)).astype(np.int32)
+    start = np.array(starts, np.int32)
+    qpos = (start[:, None] + np.arange(sq)[None, :]).astype(np.int32)
+
+    wk, wv = ref_attn.kv_cache_layer_update(
+        *(jnp.asarray(a) for a in (layer_k, layer_v, new_k, new_v, start)))
+    wpos = ref_attn.kv_cache_slot_positions(
+        jnp.asarray(positions), jnp.asarray(qpos), jnp.asarray(start))
+    tk, tv = torch.from_numpy(layer_k.copy()), torch.from_numpy(layer_v.copy())
+    tpos = torch.from_numpy(positions)
+    gk, gv = port_attn.kv_cache_layer_update(
+        tk, tv, torch.from_numpy(new_k), torch.from_numpy(new_v),
+        torch.from_numpy(start))
+    gpos = port_attn.kv_cache_slot_positions(tpos, torch.from_numpy(qpos),
+                                             torch.from_numpy(start))
+    assert gk is tk and gv is tv  # written in place
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gpos.numpy(), np.asarray(wpos))
+    np.testing.assert_array_equal(tpos.numpy(), positions)  # input unchanged
+
+
+def test_kv_cache_init_matches_reference():
+    want = ref_attn.kv_cache_init(3, 2, 7, 4, 8, jnp.float32)
+    got = port_attn.kv_cache_init(3, 2, 7, 4, 8, torch.float32, device="cpu")
+    for name in ("k", "v", "length", "positions"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
+    assert got.s_max == want.s_max == 7
+    assert got.length.dtype == got.positions.dtype == torch.int32
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_swiglu_and_cross_entropy_match_reference(dt):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    wg, wu = (rng.standard_normal((16, 24)).astype(np.float32) * 0.25
+              for _ in range(2))
+    wd = rng.standard_normal((24, 16)).astype(np.float32) * 0.2
+    (jx, jg, ju, jd), (tx, tg, tu, td) = _both([x, wg, wu, wd], dt)
+    got = port_common.swiglu(tx, tg, tu, td)
+    want = ref_common.swiglu(jx, jg, ju, jd)
+    tol = 5e-2 if dt == "bfloat16" else 1e-5
+    assert got.dtype == TORCH[dt]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    labels = rng.integers(0, 16, (2, 5)).astype(np.int32)
+    mask = rng.random((2, 5)) < 0.7
+    for m in (None, mask):
+        want_ce = ref_common.softmax_cross_entropy(
+            jx, jnp.asarray(labels), None if m is None else jnp.asarray(m))
+        got_ce = port_common.softmax_cross_entropy(
+            tx, torch.from_numpy(labels),
+            None if m is None else torch.from_numpy(m))
+        assert got_ce.dtype == torch.float32
+        np.testing.assert_allclose(float(got_ce), float(want_ce), rtol=1e-5)

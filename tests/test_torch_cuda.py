@@ -1,4 +1,5 @@
-"""The port on a CUDA card: the assignment kernel vs its plain version.
+"""The port on a CUDA card: each kernel vs its plain version, and runs on the
+card against runs on the CPU.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with ``nvcc``; they
 carry the ``cuda`` marker and skip elsewhere. This file imports neither
@@ -12,7 +13,12 @@ import torch
 
 import repro_torch.core as port
 from repro_torch.kernels import coflow_assign as ca
-from repro_torch.kernels.ops import coflow_assign
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ops import coflow_assign, flash_attention
+from repro_torch.models.api import ModelConfig
+from repro_torch.models.attention import attend
+from repro_torch.models.dense import DenseLM
+from repro_torch.serve.engine import build_decode, build_prefill
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +98,129 @@ def test_run_fast_on_the_card_equals_the_cpu_run(dev):
     port.validate(gpu)
     for name in ("core", "t_establish", "t_complete", "ccts"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KVH, Dh, causal, window, dtype): tests/test_kernels_attention.py
+# CASES, then Dh=128 with GQA, S not a multiple of 64, a window wider than S,
+# a non-causal window, and a single row.
+FA_CASES = [
+    (2, 128, 4, 4, 64, True, None, torch.float32),
+    (2, 256, 4, 2, 64, True, None, torch.float32),
+    (1, 256, 8, 1, 128, True, None, torch.bfloat16),
+    (2, 256, 4, 1, 64, True, 128, torch.bfloat16),
+    (1, 128, 2, 2, 64, False, None, torch.float32),
+    (1, 512, 4, 4, 128, True, 256, torch.float32),
+    (3, 192, 6, 3, 64, True, None, torch.bfloat16),
+    (2, 320, 8, 2, 128, True, None, torch.float32),
+    (2, 200, 4, 2, 64, True, None, torch.float32),
+    (1, 77, 4, 4, 128, True, 33, torch.bfloat16),
+    (1, 130, 2, 1, 64, True, 1000, torch.float32),
+    (2, 190, 4, 2, 64, False, 50, torch.float32),
+    (1, 1, 2, 1, 64, True, None, torch.float32),
+]
+
+
+def _fa_inputs(dev, B, S, H, KVH, Dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                 device=dev).to(dtype)
+                 for shape in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
+
+
+def _fa_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
+def test_flash_kernel_equals_plain_version(dev, case):
+    B, S, H, KVH, Dh, causal, window, dtype = case
+    q, k, v = _fa_inputs(dev, B, S, H, KVH, Dh, dtype, seed=S * H + Dh)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, S, H, Dh)
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_inputs(dev, dtype):
+    """q, k, v as views of a fused (B, S, H + 2*KVH, Dh) tensor and of a
+    (B, H, S, Dh) one: the kernel follows the strides, copies nothing."""
+    B, S, H, KVH, Dh = 2, 160, 8, 2, 64
+    rng = np.random.default_rng(11)
+    fused = torch.as_tensor(rng.standard_normal(
+        (B, S, H + 2 * KVH, Dh)).astype(np.float32), device=dev).to(dtype)
+    q, k, v = fused.split([H, KVH, KVH], dim=2)
+    bhsd = torch.as_tensor(rng.standard_normal((B, H, S, Dh)).astype(
+        np.float32), device=dev).to(dtype).transpose(1, 2)
+    for qq in (q, bhsd):
+        assert not qq.is_contiguous()
+        got = fa.flash_attention_cuda(qq, k, v, causal=True, window=70)
+        want = fa.flash_attention_plain(qq.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True, window=70)
+        tol = _fa_tol(dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    q, k, v = _fa_inputs(dev, 1, 64, 4, 2, 32, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="Dh"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(dev, 1, 64, 4, 2, 64, torch.float16, seed=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(dev, 1, 64, 4, 3, 64, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _fa_inputs(dev, 1, 64, 4, 2, 64, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="Sq"):
+        flash_attention(q[:, :1], k, v)
+
+
+def test_flash_kernel_launches_from_ops_and_attend(dev):
+    q, k, v = _fa_inputs(dev, 1, 128, 4, 2, 64, torch.float32, seed=2)
+    before = fa.launches
+    a = flash_attention(q, k, v, causal=True)
+    b = attend(q, k, v, impl="pallas", causal=True)
+    assert fa.launches == before + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_dense_lm_on_the_card_equals_the_cpu_run(dev, dtype):
+    """Prefill (flash kernel, 2 launches) and 3 greedy decode steps of a
+    2-layer GQA model, on the card and on the CPU from the same weights."""
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=512, vocab=1000,
+                      attention_impl="pallas", dtype=dtype)
+    cpu = DenseLM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    gpu = DenseLM.from_state(cfg, {n: t.to(dev)
+                                   for n, t in cpu.state_dict().items()})
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 100)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    runs = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        cache = model.make_caches(2, 104)
+        before = fa.launches
+        logits, cache = build_prefill(model)(cache, {"tokens": tokens})
+        launched = fa.launches - before
+        out = [logits.float().cpu()]
+        nxt = tokens[:, -1:]
+        for _ in range(3):
+            nxt = out[-1][:, -1].argmax(-1)[:, None] if dtype == torch.float32 \
+                else nxt  # bf16: feed the same tokens to both runs
+            logits, cache = build_decode(model)(cache, nxt)
+            out.append(logits.float().cpu())
+        runs[name] = (launched, out)
+    assert runs["gpu"][0] == cfg.n_layers and runs["cpu"][0] == 0
+    for g, c in zip(runs["gpu"][1], runs["cpu"][1]):
+        torch.testing.assert_close(g, c, atol=tol, rtol=tol)

@@ -22,17 +22,24 @@ non-zero without printing a result):
      run must equal its CPU run, and the kernel against its plain version
      on the main path's own 191,551 flows;
   5. the kernel over the whole trace (M=526, 443,943 flows);
-  6. build: ``nvcc`` compiles ``kernels/csrc/flash_attention.cu`` (started
-     beside the phase-2 build, one nvcc per source);
-  7. the flash-attention kernel against its plain PyTorch version on the
-     card: the 7 CASES of ``tests/test_kernels_attention.py`` (1e-5 fp32,
-     2e-2 bf16), ragged S, and the real layer-0 q/k/v of the TinyLlama
-     prefill of phase 8 (bf16, 2e-2), with the kernel's, the plain
-     version's and SDPA's times at that shape;
+  6. build: ``nvcc`` compiles the two flash-attention kernels,
+     ``kernels/csrc/flash_attention_sm90.cu`` (bf16: TMA + wgmma) and
+     ``kernels/csrc/flash_attention.cu`` (fp32: CUDA cores), started
+     beside the phase-2 build, one nvcc per source; their ptxas lines;
+  7. the flash-attention kernels against their plain PyTorch version on
+     the card: the 7 CASES of ``tests/test_kernels_attention.py`` (1e-5
+     fp32 through the SIMT kernel, 2e-2 bf16 through the sm90 kernel),
+     ragged S, the sm90 kernel's edge cases (S around its 128-row tiles,
+     Dh 64 and 128, windows 1/70/128/300 and none, non-causal, GQA groups
+     1/2/8), and the real layer-0 q/k/v of the TinyLlama prefill of phase
+     8 (bf16, 2e-2), with the sm90 kernel's, the plain version's and
+     SDPA's times at that shape, and the SIMT kernel's, the plain
+     version's and SDPA's at the same shape in fp32;
   8. the serving path at full width: ``DenseLM`` with tinyllama-1.1b's
      config (22 layers, d_model 2048, 32/4 heads, bf16, seeded random
      weights), ``attention_impl="pallas"``, 8 prompts of 2,048 tokens, one
-     ``build_prefill`` step (22 kernel launches) and 16 greedy
+     ``build_prefill`` step (22 launches of the sm90 kernel, none of the
+     SIMT one) and 16 greedy
      ``build_decode`` steps; the last decode logits are held to
      ``_forward_train`` on the whole 2,064-token sequence (6e-2), and a
      ``torch.profiler`` trace of one prefill and one decode step gives the
@@ -44,6 +51,7 @@ without CUDA it exits 1 before doing anything.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -73,6 +81,19 @@ CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)
 
 #: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak.
 BF16_OPS_PER_S = 989e12
+#: The sm90 kernel's edges (bf16): every S around its 128-row tiles with
+#: both head dims, each mask and GQA group in turn; then every mask x group
+#: at one ragged S. (B, S, H, KVH, Dh, causal, window).
+FA_MASKS = [(True, None), (True, 1), (True, 70), (True, 128), (True, 300),
+            (False, None)]
+FA_GROUPS = [1, 2, 8]
+FA_EDGES = [
+    (1 if S > 1000 else 2, S, 8, 8 // FA_GROUPS[i % 3], Dh,
+     *FA_MASKS[i % len(FA_MASKS)])
+    for i, (S, Dh) in enumerate(
+        (S, Dh) for S in (1, 63, 64, 65, 127, 128, 129, 200, 2064)
+        for Dh in (64, 128))
+] + [(1, 200, 8, 8 // g, 64, c, w) for c, w in FA_MASKS for g in FA_GROUPS]
 #: tests/test_kernels_attention.py CASES: (B, S, H, KVH, Dh, causal, window,
 #: dtype), then two ragged lengths (S not a multiple of the kernel's 64).
 FA_CASES = [
@@ -156,7 +177,8 @@ def main() -> int:
             builds[name] = exc
 
     threads = {n: threading.Thread(target=build, args=(n,))
-               for n in ("coflow_assign", "flash_attention")}
+               for n in ("coflow_assign", "flash_attention",
+                         "flash_attention_sm90")}
     for t in threads.values():
         t.start()
 
@@ -167,7 +189,7 @@ def main() -> int:
         return builds[name]
 
     log(f"[2] built coflow_assign.cu in {built('coflow_assign'):.2f} s "
-        f"({' '.join(_build.NVCC_FLAGS)})")
+        f"({' '.join(_build.nvcc_flags('coflow_assign'))})")
     for line in _build.build_log("coflow_assign").splitlines():
         if "ptxas info" in line:
             log(f"[2]   {line.strip()}")
@@ -317,7 +339,7 @@ def main() -> int:
         f"every choice in [0, {inst526.K})")
     log(f"[5] plain version at 4,096 flows: {1e3 * plain_4096_s:.1f} ms")
 
-    fa_row = serve_phases(torch, dev, built, sync_time, event_ms)
+    fa_rows = serve_phases(torch, dev, built, sync_time, event_ms)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -327,7 +349,7 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "library_ms": None}, fa_row]}))
+        "library_ms": None}, *fa_rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -371,7 +393,8 @@ def device_time_by_kind(torch, fn):
 
 
 def serve_phases(torch, dev, built, sync_time, event_ms):
-    """Phases 6-8: the flash-attention kernel and the serving path."""
+    """Phases 6-8: the flash-attention kernels and the serving path; the
+    kernel table's rows of the sm90 and the SIMT kernel."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
@@ -382,39 +405,58 @@ def serve_phases(torch, dev, built, sync_time, event_ms):
     from repro_torch.serve.engine import build_decode, build_prefill
 
     # ---- 6. build -------------------------------------------------------
-    log(f"[6] built flash_attention.cu in {built('flash_attention'):.2f} s")
-    for line in _build.build_log("flash_attention").splitlines():
-        if "ptxas info" in line or "spill" in line:
-            log(f"[6]   {line.strip()}")
+    for name in ("flash_attention_sm90", "flash_attention"):
+        log(f"[6] built {name}.cu in {built(name):.2f} s "
+            f"({' '.join(_build.nvcc_flags(name))})")
+        for line in _build.build_log(name).splitlines():
+            if "ptxas" in line or "spill" in line:
+                log(f"[6]   {line.strip()}")
+    smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    log(f"[6] flash_attention_sm90.cu dynamic shared memory per CTA (not in "
+        f"ptxas' lines): {smem(64):,} B at Dh=64, {smem(128):,} B at Dh=128")
 
     # ---- 7. kernel vs plain version on the card ------------------------
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    max_err = 0.0
+    max_err = {"sm90_bf16": 0.0, "simt_fp32": 0.0}
 
-    def fa_vs_plain(label, q, k, v, causal, window):
-        nonlocal max_err
+    def fa_vs_plain(label, q, k, v, causal, window, quiet=False):
+        kernel = fa.kernel_for(q.dtype)
+        before = fa.launches_by_kernel[kernel]
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        if fa.launches_by_kernel[kernel] != before + 1:
+            raise AssertionError(f"{label} did not launch {kernel}")
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
         err = float((got.float() - want.float()).abs().max())
         bad = int((~torch.isclose(got.float(), want.float(), atol=tol,
                                   rtol=tol)).sum())
-        max_err = max(max_err, err)
-        log(f"[7] {label}: max|kernel - plain| {err:.3e}, {bad} elements "
-            f"outside atol=rtol={tol:g}")
+        max_err[kernel] = max(max_err[kernel], err)
+        if not quiet or bad:
+            log(f"[7] {label} ({kernel}): max|kernel - plain| {err:.3e}, "
+                f"{bad} elements outside atol=rtol={tol:g}")
         if bad or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash kernel != plain version on {label}")
+        return err
+
+    def qkv(B, S, H, KVH, Dh, dtype):
+        rng = np.random.default_rng(S * H + Dh)
+        return (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=dev).to(dtype)
+            for shape in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
 
     for B, S, H, KVH, Dh, causal, window, dt in FA_CASES:
-        rng = np.random.default_rng(S * H + Dh)
-        q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(
-            np.float32), device=dev).to(dtypes[dt])
-            for shape in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
-        fa_vs_plain(f"case {(B, S, H, KVH, Dh, causal, window, dt)}", q, k, v,
-                    causal, window)
-    log("[7] block shapes: the kernel's tiles are fixed at 64 x 64 (S need "
-        "not divide), so there is no block size to vary")
+        fa_vs_plain(f"case {(B, S, H, KVH, Dh, causal, window, dt)}",
+                    *qkv(B, S, H, KVH, Dh, dtypes[dt]), causal, window)
+    edge_err = max(fa_vs_plain(f"edge {case}", *qkv(*case[:5], torch.bfloat16),
+                               *case[5:], quiet=True) for case in FA_EDGES)
+    log(f"[7] {len(FA_EDGES)} edge cases of the sm90 kernel (S in 1..2064 "
+        f"around its 128-row tiles, Dh 64/128, windows 1/70/128/300/none, "
+        f"non-causal, GQA groups 1/2/8): max|kernel - plain| {edge_err:.3e}, "
+        f"all within 2e-2")
+    log("[7] block shapes: the kernels' tiles are fixed (128 rows bf16, 64 "
+        "fp32; S need not divide), so there is no block size to vary")
 
     cfg = dataclasses.replace(get_arch("tinyllama-1.1b").config,
                               attention_impl="pallas")
@@ -434,35 +476,49 @@ def serve_phases(torch, dev, built, sync_time, event_ms):
         k = apply_rope(k, pos, model.inv_freq, model.rot)
         fa_vs_plain(f"layer-0 q/k/v of the prefill {tuple(q.shape)} / "
                     f"{tuple(k.shape)}", q, k, v, True, None)
-        reps = 5
-        fa.flash_attention_cuda(q, k, v)  # warm
-        ms = event_ms(lambda: fa.flash_attention_cuda(q, k, v), reps)
-        plain_ms = event_ms(lambda: fa.flash_attention_plain(q, k, v), 2)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        sdpa()
-        sdpa_ms = event_ms(sdpa, reps)
+        times = {}
+        for label, x in (("bf16", (q, k, v)),
+                         ("fp32", tuple(t.float() for t in (q, k, v)))):
+            reps = 5
+            fa.flash_attention_cuda(*x)  # warm
+            ms = event_ms(lambda: fa.flash_attention_cuda(*x), reps)
+            plain_ms = event_ms(lambda: fa.flash_attention_plain(*x), 2)
+            xt = tuple(t.transpose(1, 2) for t in x)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *xt, is_causal=True, enable_gqa=True)
+            sdpa()
+            sdpa_ms = event_ms(sdpa, reps)
+            times[label] = (ms, plain_ms, sdpa_ms, x[0].element_size())
     B, S, H, Dh = q.shape
     flops = 2.0 * B * H * S * S * Dh  # causal: half of QK^T and of PV
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    ops_s, bytes_s = flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(ops_s, bytes_s)
-    bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    log(f"[7] at {(B, S, H, k.shape[2], Dh)} bf16 causal: kernel {ms:.3f} ms "
-        f"(CUDA events, {reps} launches after a warm one, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s); plain version {plain_ms:.3f} ms; "
-        f"SDPA {sdpa_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{flops:.4e} FLOP at 989 TFLOP/s, {n_bytes:,} B at 3.35 TB/s)")
+    rows = {}
+    for label, peak, kernel in (("bf16", BF16_OPS_PER_S, "sm90_bf16"),
+                                ("fp32", FP32_OPS_PER_S, "simt_fp32")):
+        ms, plain_ms, sdpa_ms, size = times[label]
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * size
+        ops_s, bytes_s = flops / peak, n_bytes / HBM_BYTES_PER_S
+        bound_ms = 1e3 * max(ops_s, bytes_s)
+        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        log(f"[7] {kernel} at {(B, S, H, k.shape[2], Dh)} {label} causal: "
+            f"kernel {ms:.3f} ms (CUDA events, {reps} launches after a warm "
+            f"one, {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of its "
+            f"bound, {ms / sdpa_ms:.2f}x SDPA); plain version {plain_ms:.3f} "
+            f"ms; SDPA {sdpa_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops:.4e} FLOP at {peak / 1e12:.0f} TFLOP/s, {n_bytes:,} B at "
+            f"3.35 TB/s)")
+        rows[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": sdpa_ms,
+                        "max_abs_err": max_err[kernel]}
 
     # ---- 8. serving at full width ---------------------------------------
     prefill, decode = build_prefill(model), build_decode(model)
     s_max = SERVE_S + SERVE_STEPS
     cache = model.make_caches(SERVE_B, s_max)
     fa.launches = 0
+    fa.launches_by_kernel = dict.fromkeys(fa.KERNELS, 0)
     (logits, cache), t_prefill = sync_time(
         lambda: prefill(cache, {"tokens": prompts}))
-    prefill_launches = fa.launches
+    prefill_launches = dict(fa.launches_by_kernel)
     steps = [logits]
     seq = prompts
     torch.cuda.synchronize()
@@ -474,17 +530,19 @@ def serve_phases(torch, dev, built, sync_time, event_ms):
         steps.append(logits)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    serve_launches = fa.launches
-    log(f"[8] prefill B={SERVE_B} x S={SERVE_S}: {t_prefill:.3f} s, "
-        f"{prefill_launches} flash kernel launches; {SERVE_STEPS} greedy "
+    serve_launches = dict(fa.launches_by_kernel)
+    log(f"[8] prefill B={SERVE_B} x S={SERVE_S}: {t_prefill:.3f} s, flash "
+        f"kernel launches {prefill_launches}; {SERVE_STEPS} greedy "
         f"decode steps: {1e3 * t_decode / SERVE_STEPS:.2f} ms per step "
         f"({1e3 * t_decode / SERVE_STEPS / SERVE_B:.3f} ms per token of the "
         f"batch); launches over prefill + decode: {serve_launches}")
-    if prefill_launches != cfg.n_layers or serve_launches != cfg.n_layers:
-        raise AssertionError(f"the prefill must launch the flash kernel once "
-                             f"per layer ({cfg.n_layers}) and the decode "
-                             f"never; counted {prefill_launches} and "
-                             f"{serve_launches}")
+    want = {"sm90_bf16": cfg.n_layers, "simt_fp32": 0}
+    if prefill_launches != want or serve_launches != want \
+            or fa.launches != cfg.n_layers:
+        raise AssertionError(f"the prefill must launch the sm90 kernel once "
+                             f"per layer ({cfg.n_layers}) and the SIMT kernel "
+                             f"never, and the decode neither; counted "
+                             f"{prefill_launches} and {serve_launches}")
     if not all(bool(torch.isfinite(lg).all()) for lg in steps) or \
             logits.shape != (SERVE_B, 1, cfg.vocab):
         raise AssertionError("serving logits must be finite, (B, 1, V)")
@@ -523,12 +581,12 @@ def serve_phases(torch, dev, built, sync_time, event_ms):
         for name, kms, calls in top:
             log(f"[8]   {kms:9.3f} ms  {calls:4d}x  {name}")
 
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:32",
-            "launches": serve_launches, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa_ms}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{fa.KERNELS[kernel][0]}.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:32",
+             "launches": serve_launches[kernel], **rows[kernel]}
+            for name, kernel in (("flash_attention", "sm90_bf16"),
+                                 ("flash_attention_fp32", "simt_fp32"))]
 
 
 if __name__ == "__main__":

@@ -4,9 +4,11 @@
                      (Alg. 1 lines 5-17), CUDA C++ in
                      ``csrc/coflow_assign.cu``; replaces the Pallas kernel
                      ``_assign_kernel``.
-  flash_attention  — blocked causal/local GQA self-attention forward, CUDA
-                     C++ in ``csrc/flash_attention.cu``; replaces the Pallas
-                     kernel ``_fa_kernel``.
+  flash_attention  — blocked causal/local GQA self-attention forward;
+                     replaces the Pallas kernel ``_fa_kernel``. Two CUDA C++
+                     kernels chosen by dtype: bf16 in
+                     ``csrc/flash_attention_sm90.cu`` (TMA + wgmma), fp32 in
+                     ``csrc/flash_attention.cu`` (CUDA cores).
 
 The public entry points are in ``ops`` (``ops.coflow_assign``,
 ``ops.flash_attention``); each kernel's

@@ -1,28 +1,29 @@
-// Blocked GQA self-attention forward (flash attention) for Hopper.
+// Blocked GQA self-attention forward (flash attention), fp32, on the CUDA
+// cores of a Hopper card.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` in
-// src/repro/kernels/flash_attention.py (launched by `flash_attention_fwd`).
-// For every batch row b and query head h it computes
+// src/repro/kernels/flash_attention.py (launched by `flash_attention_fwd`)
+// for float32 inputs; bfloat16 inputs go to the tensor-core kernel in
+// flash_attention_sm90.cu. For every batch row b and query head h it computes
 //   o[b, :, h] = softmax(scale * q[b, :, h] . k[b, :, h / group]^T + mask)
 //                . v[b, :, h / group]
 // with positions implicitly 0..S-1 for both q and k (self-attention), a
 // causal mask (kp <= qp) and/or a sliding window (kp > qp - window). As in
-// the Pallas kernel: q, k and v are upcast to fp32 and q is pre-scaled; the
-// softmax is the fp32 online softmax (m, l, acc) over kv blocks; masked
-// scores take the finite value -0.7 * FLT_MAX; kv blocks that are wholly
-// masked for the whole q block are skipped; rows with l == 0 give 0.
+// the Pallas kernel: q is pre-scaled; the softmax is the fp32 online
+// softmax (m, l, acc) over kv blocks; masked scores take the finite value
+// -0.7 * FLT_MAX; kv blocks that are wholly masked for the whole q block
+// are skipped; rows with l == 0 give 0.
 //
-// What bounds it on an H100: operations. At the TinyLlama prefill shape
-// (B=8, S=2048, H=32, Dh=64, causal) the two products need about 1.4e11
-// FLOP against 67 MB of q, k, v and o, over 2,000 FLOP per byte; the
-// tensor cores would finish the work in about 0.14 ms. This first version
-// runs the products in fp32 on the CUDA cores (67 TFLOP/s peak), so its own
-// ceiling is about 2 ms at that shape. Tensor cores (wgmma), TMA staging
-// and a bf16 P.V are the redesign that comes after this bring-up.
+// What bounds it on an H100: operations, and here the fp32 ones. fp32
+// inputs must meet the reference's 1e-5, which rules out TF32, and wgmma
+// has no full-fp32 mode, so both products run as fp32 fmaf chains on the
+// CUDA cores (67 TFLOP/s peak): about 2 ms at the TinyLlama prefill shape
+// (B=8, S=2048, H=32, Dh=64, causal, 1.4e11 FLOP). The serving path runs
+// bf16 and never reaches this kernel.
 //
 // Design: one CTA of 256 threads per (q block of 64 rows, head, batch row).
 // The CTA stages its q block once and then walks the visible kv blocks of
-// 64 rows, staging K and V in shared memory as fp32. The 16 x 16 threads
+// 64 rows, staging K and V in shared memory. The 16 x 16 threads
 // each own 4 rows (ty*4 .. ty*4+3) of the 64 x 64 score tile, in columns
 // tx, tx+16, tx+32, tx+48, and the same 4 rows of the output in columns
 // g*64 + tx*4 .. +3. The 16 threads of a row group sit in one half warp,
@@ -37,7 +38,6 @@
 //
 // Numerics: the products are fp32 fmaf chains (explicit fmaf contracts even
 // under -fmad=false); exponentials are expf, never __expf; no TF32.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,19 +69,10 @@ struct Params {
   int window;  // <= 0: no window
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Stage rows [row0, row0 + 64) of one head of x into dst (64 x kLd fp32),
 // times `mul`; rows at or past `seq` become zeros.
-template <typename T, int kDh>
-__device__ __forceinline__ void stage_tile(float* dst, const T* base,
+template <int kDh>
+__device__ __forceinline__ void stage_tile(float* dst, const float* base,
                                            const Strides& st, int row0,
                                            int seq, float mul) {
   constexpr int kLd = kDh + kPad;
@@ -90,12 +81,12 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* base,
     const int d = e % kDh;
     const int s = row0 + r;
     float x = 0.0f;
-    if (s < seq) x = load_f(base + s * st.s + d * st.d) * mul;
+    if (s < seq) x = base[s * st.s + d * st.d] * mul;
     dst[r * kLd + d] = x;
   }
 }
 
-template <typename T, int kDh>
+template <int kDh>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const Params p) {
   constexpr int kLd = kDh + kPad;     // row stride of Qs, Ks, Vs (floats)
@@ -117,12 +108,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int q0 = qb * kBlockQ;
   const int seq = p.seq;
 
-  const T* qbase = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const T* kbase = static_cast<const T*>(p.k) + b * p.ks.b + kvh * p.ks.h;
-  const T* vbase = static_cast<const T*>(p.v) + b * p.vs.b + kvh * p.vs.h;
-  T* obase = static_cast<T*>(p.o) + b * p.os.b + h * p.os.h;
+  const float* qbase = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const float* kbase = static_cast<const float*>(p.k) + b * p.ks.b + kvh * p.ks.h;
+  const float* vbase = static_cast<const float*>(p.v) + b * p.vs.b + kvh * p.vs.h;
+  float* obase = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
 
-  stage_tile<T, kDh>(Qs, qbase, p.qs, q0, seq, p.scale);
+  stage_tile<kDh>(Qs, qbase, p.qs, q0, seq, p.scale);
 
   // Visible kv blocks: none wholly in the future of the q block's last row
   // (causal), none wholly before its first row's window.
@@ -147,8 +138,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kb = kb_lo; kb <= kb_hi; ++kb) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // the last block's readers of Ks, Vs, Ps are done
-    stage_tile<T, kDh>(Ks, kbase, p.ks, k0, seq, 1.0f);
-    stage_tile<T, kDh>(Vs, vbase, p.vs, k0, seq, 1.0f);
+    stage_tile<kDh>(Ks, kbase, p.ks, k0, seq, 1.0f);
+    stage_tile<kDh>(Vs, vbase, p.vs, k0, seq, 1.0f);
     __syncthreads();
 
     // s = (q * scale) . k^T for 4 rows x 4 columns
@@ -253,35 +244,35 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = g * 64 + tx * 4 + e;
-        store_f(obase + row * p.os.s + d * p.os.d, acc[i][g * 4 + e] / safe);
+        obase[row * p.os.s + d * p.os.d] = acc[i][g * 4 + e] / safe;
       }
   }
 }
 
-template <typename T, int kDh>
+template <int kDh>
 int launch(const Params& p, int n_qblk, int n_heads, int batch,
            cudaStream_t stream) {
   const int smem =
       (3 * kBlockQ * (kDh + kPad) + kBlockQ * (kBlockK + kPad)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, kDh>,
+      flash_attention_kernel<kDh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_kernel<T, kDh>
+  flash_attention_kernel<kDh>
       <<<dim3(n_qblk, n_heads, batch), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError(), or -1 for
-// a head_dim the kernel is not built for. `strides` holds 16 element strides:
+// Launches the kernel on `stream` for float32 q, k, v and returns
+// cudaGetLastError(), or -1 for a head_dim the kernel is not built for. `strides` holds 16 element strides:
 // (b, s, h, d) of q, k, v and o in that order. `o` is written, never read.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int batch,
                                       int seq, int n_heads, int n_kv_heads,
-                                      int head_dim, int is_bf16, float scale,
+                                      int head_dim, float scale,
                                       int causal, int window,
                                       cudaStream_t stream) {
   Params p;
@@ -302,13 +293,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   const int n_qblk = (seq + kBlockQ - 1) / kBlockQ;
-  if (head_dim == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(p, n_qblk, n_heads, batch, stream)
-                   : launch<float, 64>(p, n_qblk, n_heads, batch, stream);
-  }
-  if (head_dim == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(p, n_qblk, n_heads, batch, stream)
-                   : launch<float, 128>(p, n_qblk, n_heads, batch, stream);
-  }
+  if (head_dim == 64) return launch<64>(p, n_qblk, n_heads, batch, stream);
+  if (head_dim == 128) return launch<128>(p, n_qblk, n_heads, batch, stream);
   return -1;
 }

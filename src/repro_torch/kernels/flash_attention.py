@@ -1,21 +1,25 @@
 """Blocked causal/local GQA self-attention forward (flash attention).
 
 Port of the Pallas TPU kernel ``_fa_kernel`` (``repro.kernels.
-flash_attention``). Two versions of one function live here:
+flash_attention``). One function, in three versions:
 
-  - :func:`flash_attention_cuda`, the wrapper of the hand-written Hopper
-    kernel ``csrc/flash_attention.cu`` (one CTA per 64-row q block, head and
-    batch row; fp32 online softmax over 64-row kv blocks; see the note in
-    the source for its design and what bounds it);
+  - :func:`flash_attention_cuda`, the wrapper of two hand-written Hopper
+    kernels, chosen by dtype: bfloat16 goes to
+    ``csrc/flash_attention_sm90.cu`` (``"sm90_bf16"``: TMA loads of 128-row
+    tiles, both products on the tensor cores with ``wgmma``, fp32 online
+    softmax, P rounded to bf16 before P.V), float32 to
+    ``csrc/flash_attention.cu`` (``"simt_fp32"``: fp32 products on the CUDA
+    cores, since fp32 inputs must meet 1e-5 and wgmma has no full-fp32
+    mode). The notes in the sources give each design and what bounds it.
   - :func:`flash_attention_plain`, the plain PyTorch version, the
     counterpart of ``repro.kernels.ref.attention_ref``: K/V heads repeated
     with ``repeat_interleave``, an fp32 einsum, a ``-inf`` masked softmax and
-    an fp32 P.V. The CPU tests and ``chip_smoke.py`` hold the kernel to it.
+    an fp32 P.V. The CPU tests and ``chip_smoke.py`` hold both kernels to it.
 
-Both compute self-attention with positions implicitly 0..S-1 (q and k of
+All compute self-attention with positions implicitly 0..S-1 (q and k of
 one length), ``(B, S, H, Dh)`` in, ``(B, S, H, Dh)`` in ``q.dtype`` out.
-``launches`` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+``launches`` counts the kernels' launches and ``launches_by_kernel`` splits
+the count by kernel, so a run can show which kernel served its main path.
 """
 from __future__ import annotations
 
@@ -26,14 +30,46 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
-           "HEAD_DIMS", "BLOCK"]
+           "launches_by_kernel", "HEAD_DIMS", "KERNELS", "kernel_for",
+           "check_tma"]
 
-#: Head dims the kernel is compiled for.
+#: Head dims the kernels are compiled for.
 HEAD_DIMS = (64, 128)
-#: Rows of the kernel's q and kv tiles (fixed; S need not be a multiple).
-BLOCK = 64
+#: Kernel name -> (csrc source, dtype it takes).
+KERNELS = {"sm90_bf16": ("flash_attention_sm90", torch.bfloat16),
+           "simt_fp32": ("flash_attention", torch.float32)}
 
 launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """The kernel that takes ``dtype``: ``"sm90_bf16"`` or ``"simt_fp32"``."""
+    for name, (_, dt) in KERNELS.items():
+        if dt == dtype:
+            return name
+    raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 q, k, "
+                     f"v, got {dtype}")
+
+
+def check_tma(x: torch.Tensor, name: str) -> None:
+    """Raise ``ValueError`` unless TMA can load ``x`` (B, S, H, Dh) bf16 as
+    it lies: Dh stride 1, the stride of every other dimension longer than 1
+    a positive multiple of 16 bytes, a 16-byte aligned base. Nothing is
+    copied to make it so."""
+    size = x.element_size()
+    if x.shape[3] > 1 and x.stride(3) != 1:
+        raise ValueError(f"{name}: the bf16 kernel loads tiles by TMA and "
+                         f"needs Dh stride 1, got strides {x.stride()}")
+    for dim in range(3):
+        st = x.stride(dim) * size
+        if x.shape[dim] > 1 and (st <= 0 or st % 16):
+            raise ValueError(
+                f"{name}: TMA needs the stride of dim {dim} to be a positive "
+                f"multiple of 16 bytes, got {st} B (strides {x.stride()})")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned base, got "
+                         f"address {x.data_ptr():#x}")
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -78,11 +114,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softmax_scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; ``(B, S, H, Dh)``.
+    """Launch the kernel for ``q.dtype`` on the current stream.
 
-    Takes q, k, v on one CUDA device, all float32 or all bfloat16, with
-    Dh in :data:`HEAD_DIMS`, in any strides (they are passed to the kernel;
-    nothing is copied). Raises on anything else and when the launch fails.
+    Takes q, k, v on one CUDA device, all bfloat16 (the sm90 kernel, whose
+    strides must satisfy :func:`check_tma`) or all float32 (the SIMT
+    kernel, any strides), with Dh in :data:`HEAD_DIMS`, and returns
+    ``(B, S, H, Dh)`` in their dtype. The strides are passed to the kernel;
+    nothing is copied. Raises on anything else and when the launch fails.
     S = 0 returns an empty tensor without a launch.
     """
     global launches
@@ -91,38 +129,44 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention_cuda inputs must share one device")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or not q.dtype == k.dtype == v.dtype:
+    if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 "
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
+    kernel = kernel_for(q.dtype)
     b, s, h, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for Dh in {HEAD_DIMS}, got "
                          f"Dh={dh}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if kernel == "sm90_bf16":
+        for x, name in ((q, "q"), (k, "k"), (v, "v")):
+            check_tma(x, name)
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+    source = KERNELS[kernel][0]
+    fn = getattr(_build.load(source), f"{source}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
-        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 strides, b, s, h, k.shape[2], dh,
-                 int(q.dtype == torch.bfloat16), float(scale), int(causal),
+                 strides, b, s, h, k.shape[2], dh, float(scale), int(causal),
                  0 if window is None else int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} (B={b}, S={s}, H={h}, KVH={k.shape[2]}, "
+        what = {-2: "libcuda offers no cuTensorMapEncodeTiled"}.get(
+            err, f"tensor map refused (CUresult {-err - 1000})"
+            if err <= -1000 else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
+                           f"{what} (B={b}, S={s}, H={h}, KVH={k.shape[2]}, "
                            f"Dh={dh}, {q.dtype})")
     launches += 1
+    launches_by_kernel[kernel] += 1
     return out

@@ -49,9 +49,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     accepts and drops ``q_positions``, ``kv_positions`` and ``kv_valid``,
     which is wrong for a cached call; here any of them, or ``Sq != Sk``,
     raises ``ValueError``. Cached and decode calls belong to
-    ``models.attention.attend_xla``. The kernel tiles S in fixed blocks of
-    64 rows and masks the ragged tail itself, so no block size is chosen
-    here.
+    ``models.attention.attend_xla``. The kernels tile S in fixed blocks
+    (128 rows in bf16, 64 in fp32) and mask the ragged tail themselves, so
+    no block size is chosen here.
     """
     if q_positions is not None or kv_positions is not None \
             or kv_valid is not None:

@@ -5,8 +5,11 @@ port runs on the CPU, and what the CUDA kernel is held to on the card) is
 compared with the Pallas kernel ``flash_attention_fwd`` in interpret mode
 and with ``attention_ref``, on the CASES of ``test_kernels_attention.py``:
 1e-5 in fp32 (sums in another order), 2e-2 in bf16 (the output's rounding).
-``attend_xla``, the norms, RoPE and the cache are compared with
-``repro.models`` on the same numpy inputs. Run with
+A test-local emulation of the bf16 CUDA kernel's rounding (which cannot
+run here) is held to the same references, and the wrapper's pure-Python
+parts (the kernel chosen by dtype, the TMA stride check, the build key)
+are tested on CPU tensors. ``attend_xla``, the norms, RoPE and the cache are
+compared with ``repro.models`` on the same numpy inputs. Run with
 ``REPRO_PALLAS_INTERPRET=1`` as the JAX suite is (off a TPU the Pallas
 kernels run in interpret mode either way).
 """
@@ -21,6 +24,7 @@ import repro_torch.models.attention as port_attn
 import repro_torch.models.common as port_common
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.ref import attention_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as port_ops
 
@@ -87,11 +91,12 @@ def test_plain_version_matches_every_pallas_tiling(blocks):
 
 def test_ops_flash_attention_runs_plain_version_on_cpu():
     _, (tq, tk, tv) = _both(_qkv(3, 2, 100, 4, 2, 64), "float32")
-    before = fa.launches
+    before, by_kernel = fa.launches, dict(fa.launches_by_kernel)
     got = port_ops.flash_attention(tq, tk, tv, causal=True, window=40)
     want = fa.flash_attention_plain(tq, tk, tv, causal=True, window=40)
     assert torch.equal(got, want)
     assert fa.launches == before  # no kernel on the CPU
+    assert fa.launches_by_kernel == by_kernel
 
 
 def test_ops_flash_attention_refuses_what_the_kernel_cannot_honour():
@@ -113,6 +118,156 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     _, (tq, tk, tv) = _both(_qkv(3, 1, 8, 2, 2, 64), "float32")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(tq, tk, tv)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's numerics, and the wrapper's pure-Python parts
+# ---------------------------------------------------------------------------
+
+
+def _sm90_emulation(q, k, v, *, causal, window, block=128):
+    """The rounding of ``csrc/flash_attention_sm90.cu``, in torch on the CPU:
+    bf16 q, k, v; S = Q.K^T in fp32; the scale (times log2 e) applied to the
+    fp32 S; the fp32 online softmax with exp2 over kv tiles of ``block``
+    rows; P rounded to bf16 before an fp32-accumulated P.V; l summed from
+    the fp32 p; O / l (0 where l == 0), rounded to bf16."""
+    _, s, h, dh = q.shape
+    rep = h // k.shape[2]
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    kf, vf = kf.repeat_interleave(rep, 2), vf.repeat_interleave(rep, 2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * np.float32(
+        dh ** -0.5 * np.log2(np.e))
+    pos = torch.arange(s)
+    qp, kp = pos[:, None], pos[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = torch.full(logits.shape[:3], float("-inf"))
+    l = torch.zeros(logits.shape[:3])
+    acc = torch.zeros(logits.shape[:3] + (dh,))
+    for k0 in range(0, s, block):
+        st = logits[..., k0:k0 + block]
+        mn = torch.maximum(m, st.amax(-1))
+        mu = torch.where(mn == float("-inf"), 0.0, mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(st - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, k0:k0 + block])
+        m = mn
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:7]) for c in CASES])
+def test_bf16_kernel_numerics_meet_the_reference_contract(case):
+    """bf16 products with fp32 sums and a bf16 P stay within the bf16
+    contract (2e-2) of the Pallas kernel and ``attention_ref``, on the
+    CASES' values rounded to bf16 (given to the references in the case's
+    dtype)."""
+    B, S, H, KVH, Dh, causal, window, dt, blk = case
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               for a in _qkv(S * H + Dh, B, S, H, KVH, Dh))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dt)
+    got = _sm90_emulation(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, Dh)
+    kern = flash_attention_fwd(jq, jk, jv, causal=causal, window=window,
+                               block_q=blk, block_k=blk, interpret=True)
+    ref = attention_ref(jq, jk, jv, causal=causal, window=window)
+    for want in (kern, ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype, kernel", [
+    (torch.bfloat16, "sm90_bf16"), (torch.float32, "simt_fp32")])
+def test_cuda_wrapper_picks_the_kernel_by_dtype(dtype, kernel):
+    assert fa.kernel_for(dtype) == kernel
+    source, taken = fa.KERNELS[kernel]
+    assert taken == dtype
+    assert (_build.CSRC / f"{source}.cu").is_file()
+    assert set(fa.launches_by_kernel) == set(fa.KERNELS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_cuda_wrapper_has_no_kernel_for_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.kernel_for(dtype)
+
+
+def _fused_split(B, S, H, KVH, Dh):
+    fused = torch.zeros((B, S, H + 2 * KVH, Dh), dtype=torch.bfloat16)
+    return fused.split([H, KVH, KVH], dim=2)
+
+
+# bf16 layouts TMA loads as they lie: contiguous at the prefill's and the
+# edge cases' shapes, a fused (B, S, H + 2 KVH, Dh) split, a (B, H, S, Dh)
+# transpose, and extent-1 dimensions whose strides are never walked.
+TMA_OK = {
+    "prefill": lambda: torch.zeros((8, 2048, 32, 64), dtype=torch.bfloat16),
+    "S=1": lambda: torch.zeros((1, 1, 2, 128), dtype=torch.bfloat16),
+    "S=63 Dh=128": lambda: torch.zeros((2, 63, 8, 128), dtype=torch.bfloat16),
+    "S=2064": lambda: torch.zeros((2, 2064, 8, 64), dtype=torch.bfloat16),
+    "fused q": lambda: _fused_split(2, 160, 8, 2, 64)[0],
+    "fused k": lambda: _fused_split(2, 160, 8, 2, 64)[1],
+    "fused v": lambda: _fused_split(2, 160, 8, 2, 64)[2],
+    "BHSD transpose": lambda: torch.zeros(
+        (2, 8, 160, 64), dtype=torch.bfloat16).transpose(1, 2),
+    "H=1 sliced": lambda: torch.zeros(
+        (1, 129, 4, 64), dtype=torch.bfloat16)[:, :, 1:2],
+}
+# and what it cannot: the message names what is wrong
+TMA_BAD = {
+    "Dh stride 2": (lambda: torch.zeros(
+        (1, 64, 2, 128), dtype=torch.bfloat16)[..., ::2], "Dh stride 1"),
+    "H stride 136 B": (lambda: torch.zeros(
+        (1, 64, 2, 68), dtype=torch.bfloat16)[..., :64], "multiple of 16"),
+    "S stride 130 B": (lambda: torch.zeros(
+        (1, 64, 65), dtype=torch.bfloat16)[..., :64].unsqueeze(2),
+        "multiple of 16"),
+    "base 2 B off": (lambda: torch.zeros(
+        520, dtype=torch.bfloat16)[1:513].view(1, 4, 2, 64), "aligned"),
+}
+
+
+@pytest.mark.parametrize("name", list(TMA_OK))
+def test_tma_check_accepts_layouts_tma_can_load(name):
+    fa.check_tma(TMA_OK[name](), "q")
+
+
+@pytest.mark.parametrize("name", list(TMA_BAD))
+def test_tma_check_refuses_what_tma_cannot_load(name):
+    make, match = TMA_BAD[name]
+    with pytest.raises(ValueError, match=match):
+        fa.check_tma(make(), "q")
+
+
+def test_build_key_covers_every_included_header(tmp_path, monkeypatch):
+    """An edit to a header that a source includes, directly or through
+    another header, changes the built library's name; an edit to a header
+    it does not include does not."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = _build._target("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert _build._target("k") == before
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build._target("k") != before
+
+
+def test_build_flags_are_per_source():
+    assert "-fmad=false" in _build.nvcc_flags("coflow_assign")
+    assert "-fmad=false" in _build.nvcc_flags("flash_attention")
+    assert "-fmad=false" not in _build.nvcc_flags("flash_attention_sm90")
+    assert "sm_90a" in " ".join(_build.nvcc_flags("flash_attention_sm90"))
 
 
 # ---------------------------------------------------------------------------

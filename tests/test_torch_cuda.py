@@ -106,7 +106,8 @@ def test_run_fast_on_the_card_equals_the_cpu_run(dev):
 
 # (B, S, H, KVH, Dh, causal, window, dtype): tests/test_kernels_attention.py
 # CASES, then Dh=128 with GQA, S not a multiple of 64, a window wider than S,
-# a non-causal window, and a single row.
+# a non-causal window, and a single row. bf16 goes to the sm90 kernel (2e-2),
+# fp32 to the SIMT kernel (1e-5).
 FA_CASES = [
     (2, 128, 4, 4, 64, True, None, torch.float32),
     (2, 256, 4, 2, 64, True, None, torch.float32),
@@ -122,6 +123,18 @@ FA_CASES = [
     (2, 190, 4, 2, 64, False, 50, torch.float32),
     (1, 1, 2, 1, 64, True, None, torch.float32),
 ]
+# The bf16 kernel's edges: every S around its 128-row tiles, both head dims,
+# each mask and GQA group in turn; then every mask x group at one ragged S.
+_MASKS = [(True, None), (True, 1), (True, 70), (True, 128), (True, 300),
+          (False, None)]
+_GROUPS = [1, 2, 8]
+_EDGE_S = [1, 63, 64, 65, 127, 128, 129, 200, 2064]
+FA_CASES += [
+    (1 if S > 1000 else 2, S, 8, 8 // _GROUPS[i % 3], Dh,
+     *_MASKS[i % len(_MASKS)], torch.bfloat16)
+    for i, (S, Dh) in enumerate((S, Dh) for S in _EDGE_S for Dh in (64, 128))]
+FA_CASES += [(1, 200, 8, 8 // g, 64, c, w, torch.bfloat16)
+             for c, w in _MASKS for g in _GROUPS]
 
 
 def _fa_inputs(dev, B, S, H, KVH, Dh, dtype, seed):
@@ -139,10 +152,13 @@ def _fa_tol(dtype):
 def test_flash_kernel_equals_plain_version(dev, case):
     B, S, H, KVH, Dh, causal, window, dtype = case
     q, k, v = _fa_inputs(dev, B, S, H, KVH, Dh, dtype, seed=S * H + Dh)
-    before = fa.launches
+    before, by_kernel = fa.launches, dict(fa.launches_by_kernel)
     got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "simt_fp32"
+    assert fa.launches_by_kernel == {
+        **by_kernel, kernel: by_kernel[kernel] + 1}
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == (B, S, H, Dh)
     tol = _fa_tol(dtype)
@@ -168,6 +184,24 @@ def test_flash_kernel_reads_strided_inputs(dev, dtype):
         tol = _fa_tol(dtype)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+def test_sm90_kernel_is_deterministic(dev):
+    """Two launches on the same inputs give bitwise the same output."""
+    q, k, v = _fa_inputs(dev, 2, 2064, 8, 2, 64, torch.bfloat16, seed=5)
+    a = fa.flash_attention_cuda(q, k, v, causal=True)
+    b = fa.flash_attention_cuda(q, k, v, causal=True)
+    assert torch.equal(a, b)
+
+
+def test_sm90_kernel_refuses_what_tma_cannot_load(dev):
+    """A bf16 view whose Dh stride is not 1 raises; nothing is copied and
+    no other kernel takes over."""
+    q, k, v = _fa_inputs(dev, 1, 64, 4, 2, 128, torch.bfloat16, seed=0)
+    before = dict(fa.launches_by_kernel)
+    with pytest.raises(ValueError, match="Dh stride 1"):
+        fa.flash_attention_cuda(q[..., ::2], k[..., ::2], v[..., ::2])
+    assert fa.launches_by_kernel == before
 
 
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take(dev):
@@ -207,12 +241,13 @@ def test_tiny_dense_lm_on_the_card_equals_the_cpu_run(dev, dtype):
     tokens = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab, (2, 100)))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "simt_fp32"
     runs = {}
     for name, model in (("gpu", gpu), ("cpu", cpu)):
         cache = model.make_caches(2, 104)
-        before = fa.launches
+        before = fa.launches_by_kernel[kernel]
         logits, cache = build_prefill(model)(cache, {"tokens": tokens})
-        launched = fa.launches - before
+        launched = fa.launches_by_kernel[kernel] - before
         out = [logits.float().cpu()]
         nxt = tokens[:, -1:]
         for _ in range(3):

@@ -10,18 +10,31 @@ non-zero without printing a result):
 
   1. the device: ``torch.cuda.get_device_name`` and the card's name and power
      limit from ``nvidia-smi``;
-  2. build: ``nvcc`` compiles ``kernels/csrc/coflow_assign.cu`` for sm_90a;
-  3. the assignment kernel against its plain PyTorch version on the card,
-     bit for bit, on small and edge shapes (F=0, F=5, K=8 at N=150, K=8 at
-     N=512 where the nonzero bitmap lives in global memory) and on the first
-     4,096 pi-ordered flows of the 526-coflow trace instance;
+  2. build: ``nvcc`` compiles the two assignment kernels for sm_90a,
+     ``kernels/csrc/coflow_assign_sm90.cu`` (the chain kernel, K <= 8) and
+     ``kernels/csrc/coflow_assign.cu`` (the warp kernel, K <= 32), one nvcc
+     per source, all four sources of the script started together; their
+     ptxas lines (registers, shared memory, spills);
+  3. the assignment kernels against their plain PyTorch version on the
+     card, bit for bit: the chain kernel on small and edge shapes (F=0,
+     F=5, K=8 at N=150, K=8 at N=512 where the nonzero bitmap lives in
+     global memory), on every hazard stream of ``kernels/hazards.py``
+     (ports repeated at distances 1..4, runs of one port, exact ties, zero
+     sizes) for K=1..8 at N=8, 150 and 512, and on the first 4,096
+     pi-ordered flows of the 526-coflow trace instance; the warp kernel on
+     those 4,096 flows and on hazard streams at K=9 and 32;
   4. the main path: ``sample_instance(N=150, M=200)`` of the FB-2010-style
      trace through ``run_fast`` and ``validate``, with weighted and tail CCT,
-     each stage's time, the kernel's launch count in that run, a check of
-     every CCT against the Lemma 1 lower bound, a small instance whose GPU
-     run must equal its CPU run, and the kernel against its plain version
-     on the main path's own 191,551 flows;
-  5. the kernel over the whole trace (M=526, 443,943 flows);
+     each stage's time, each assignment kernel's launches in that run (one
+     of the chain kernel, none of the warp kernel), a check of every CCT
+     against the Lemma 1 lower bound, a small instance whose GPU run must
+     equal its CPU run, and the chain kernel against its plain version on
+     the main path's own 191,551 flows;
+  5. the whole trace (M=526, 443,943 flows): the chain kernel against the
+     warp kernel, choice for choice; then both kernels timed in turns
+     (warp, chain, chain, warp) at F=191,551 and F=443,943 with CUDA
+     events, the SM clock read with ``nvidia-smi`` beside each timing, ns
+     and cycles per flow, the roofline bound and the chain floor;
   6. build: ``nvcc`` compiles the two flash-attention kernels,
      ``kernels/csrc/flash_attention_sm90.cu`` (bf16: TMA + wgmma) and
      ``kernels/csrc/flash_attention.cu`` (fp32: CUDA cores), started
@@ -54,6 +67,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -73,6 +87,16 @@ FP32_OPS_PER_S = 67e12
 OPS_PER_FLOW_CORE = 12
 #: Bytes per flow the function must move: fi, fj, size in, choice out.
 BYTES_PER_FLOW = 16
+#: The chain floor of the chain kernel (derived from its source, not
+#: measured): the dependent instructions from one flow's candidates to the
+#: next flow's -- 2 per level of the argmin tree (compare, select), then
+#: k == k*, the winner's bound and the max -- at CHAIN_CYCLES_PER_OP cycles
+#: each (Hopper's fixed-latency integer/float pipes).
+CHAIN_CYCLES_PER_OP = 5
+
+
+def chain_dependent_ops(k_cores: int) -> int:
+    return 2 * max(1, (k_cores - 1).bit_length()) + 3
 
 TRACE_COFLOWS, TRACE_SEED = 526, 2026
 N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
@@ -132,6 +156,7 @@ def main() -> int:
                                          _times_for_table)
     from repro_torch.kernels import _build
     from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.kernels.hazards import KINDS, hazard_stream
     from repro_torch.kernels.ops import coflow_assign
 
     dev = torch.device("cuda")
@@ -177,8 +202,8 @@ def main() -> int:
             builds[name] = exc
 
     threads = {n: threading.Thread(target=build, args=(n,))
-               for n in ("coflow_assign", "flash_attention",
-                         "flash_attention_sm90")}
+               for n in ("coflow_assign_sm90", "coflow_assign",
+                         "flash_attention", "flash_attention_sm90")}
     for t in threads.values():
         t.start()
 
@@ -188,28 +213,48 @@ def main() -> int:
             raise builds[name]
         return builds[name]
 
-    log(f"[2] built coflow_assign.cu in {built('coflow_assign'):.2f} s "
-        f"({' '.join(_build.nvcc_flags('coflow_assign'))})")
-    for line in _build.build_log("coflow_assign").splitlines():
-        if "ptxas info" in line:
-            log(f"[2]   {line.strip()}")
+    for name in ("coflow_assign_sm90", "coflow_assign"):
+        log(f"[2] built {name}.cu in {built(name):.2f} s "
+            f"({' '.join(_build.nvcc_flags(name))})")
+        # one line per instance: the chain kernel has one per K and bitmap
+        # place (mangled as ILi<K>ELb<shared>), the warp kernel one per place
+        instance, spills = "", ""
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                k = re.search(r"ILi(\d)E", line)
+                instance = (f"K={k.group(1)}, " if k else "") + "bitmap " + (
+                    "shared" if "Lb1E" in line else "global")
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line:
+                log(f"[2]   {name} {instance}: {line.split(':', 1)[1].strip()}"
+                    f"; {spills}")
+    smem_main, _ = ca._chain_smem_layout(len(RATES), N_PORTS)
+    log(f"[2] chain kernel dynamic shared memory (not in ptxas' lines) at "
+        f"K={len(RATES)}, N={N_PORTS}: {smem_main:,} B")
 
-    max_err = 0
+    max_err = {"chain_sm90": 0, "warp": 0}
 
-    def kernel_vs_plain(label, fi, fj, sz, rates, delta, n_ports, phase=3):
-        nonlocal max_err
-        got = ca.coflow_assign_cuda(fi, fj, sz, rates, delta, n_ports=n_ports)
+    def kernel_vs_plain(label, fi, fj, sz, rates, delta, n_ports, phase=3,
+                        kernel=None, quiet=False):
+        name = kernel or ca.kernel_for(rates.numel())
+        before = ca.launches_by_kernel[name]
+        got = ca.coflow_assign_cuda(fi, fj, sz, rates, delta, n_ports=n_ports,
+                                    kernel=kernel)
         torch.cuda.synchronize()
+        if got.numel() and ca.launches_by_kernel[name] != before + 1:
+            raise AssertionError(f"{label} did not launch the {name} kernel")
         want, plain_s = sync_time(lambda: ca.coflow_assign_plain(
             fi, fj, sz, rates, delta, n_ports=n_ports))
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
+        max_err[name] = max(max_err[name], err)
         n_diff = int((got != want).sum())
-        log(f"[{phase}] {label}: F={fi.numel()} K={rates.numel()} N={n_ports} "
-            f"delta={delta}: {n_diff} choices differ "
-            f"(plain version {plain_s:.3f} s)")
+        if not quiet or n_diff:
+            log(f"[{phase}] {label} ({name}): F={fi.numel()} K={rates.numel()} "
+                f"N={n_ports} delta={delta}: {n_diff} choices differ "
+                f"(plain version {plain_s:.3f} s)")
         if n_diff:
-            raise AssertionError(f"kernel != plain version on {label}")
+            raise AssertionError(f"{name} kernel != plain version on {label}")
         return plain_s
 
     def on_card(fi, fj, sz, rates):
@@ -247,16 +292,39 @@ def main() -> int:
         kernel_vs_plain(f"K=8 N={N} (nz bitmap in {where} memory)",
                         *on_card(fi, fj, sz, rates), 8.0, N)
 
+    n_streams = 0
+    t_hz = time.perf_counter()
+    for stream in KINDS:
+        for K in range(1, ca.CHAIN_MAX_CORES + 1):
+            for N in (8, 150, 512):
+                fi, fj, sz, rates, delta = hazard_stream(stream, K, N)
+                kernel_vs_plain(f"hazard stream {stream}",
+                                *on_card(fi, fj, sz, rates), delta, N,
+                                quiet=True)
+                n_streams += 1
+    log(f"[3] {n_streams} hazard streams ({len(KINDS)} kinds: ports repeated "
+        f"at distances 1..4, runs of one port, ties, zero sizes; K=1..8; "
+        f"N=8/150/512; 300 flows each): the chain kernel equals the plain "
+        f"version on every one ({time.perf_counter() - t_hz:.1f} s)")
+    for K in (9, 32):
+        for stream in ("cell@1", "col@2", "mixed", "ties"):
+            fi, fj, sz, rates, delta = hazard_stream(stream, K, N_PORTS)
+            kernel_vs_plain(f"hazard stream {stream}",
+                            *on_card(fi, fj, sz, rates), delta, N_PORTS)
+
     trace = synth_fb_trace(TRACE_COFLOWS, seed=TRACE_SEED)
     inst526, t_inst526 = sync_time(lambda: sample_instance(
         trace, N=N_PORTS, M=TRACE_COFLOWS, rates=RATES, delta=DELTA, seed=0,
         device=dev))
     _pos, _cid, fi526, fj526, sz526 = extract_flows(inst526, order_coflows(inst526))
     rates32 = inst526.rates.float()
+    first = (fi526[:4096].int(), fj526[:4096].int(), sz526[:4096].float(),
+             rates32)
     plain_4096_s = kernel_vs_plain(
-        "first 4,096 pi-ordered flows of the M=526 trace instance",
-        fi526[:4096].int(), fj526[:4096].int(), sz526[:4096].float(), rates32,
+        "first 4,096 pi-ordered flows of the M=526 trace instance", *first,
         DELTA, N_PORTS)
+    kernel_vs_plain("first 4,096 pi-ordered flows of the M=526 trace "
+                    "instance", *first, DELTA, N_PORTS, kernel="warp")
 
     # ---- 4. main path -----------------------------------------------------
     inst, t_inst = sync_time(lambda: sample_instance(
@@ -264,10 +332,12 @@ def main() -> int:
     log(f"[4] instance: M={inst.M} N={inst.N} K={inst.K} delta={inst.delta}; "
         f"sampled and moved to the card in {t_inst:.2f} s")
     ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
     sched, t_run = sync_time(lambda: run_fast(inst))
-    main_launches = ca.launches
-    if main_launches < 1:
-        raise AssertionError("run_fast did not launch the coflow_assign kernel")
+    main_launches = dict(ca.launches_by_kernel)
+    if main_launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
+        raise AssertionError(f"run_fast must launch the chain kernel once and "
+                             f"the warp kernel never; counted {main_launches}")
     _, t_val = sync_time(lambda: validate(sched))
     F = sched.n_flows
     ccts = sched.ccts
@@ -279,7 +349,7 @@ def main() -> int:
     if not bool((ccts >= lb * (1 - 1e-12)).all()):
         raise AssertionError("a CCT is below its Lemma 1 lower bound")
     wcct, p95, p99 = sched.total_weighted_cct, tail_cct(sched, 0.95), tail_cct(sched, 0.99)
-    log(f"[4] run_fast: {F} flows, {main_launches} kernel launch(es), "
+    log(f"[4] run_fast: {F} flows, assignment kernel launches {main_launches}, "
         f"{t_run:.3f} s end to end; validate passed in {t_val:.3f} s")
     log(f"[4] weighted CCT {wcct!r}  p95 CCT {p95!r}  p99 CCT {p99!r}  "
         f"(every CCT >= delta + rho/R)")
@@ -316,40 +386,89 @@ def main() -> int:
     fi32, fj32, sz32 = fi.int(), fj.int(), size.float()
     plain_main_s = kernel_vs_plain("main path flows", fi32, fj32, sz32,
                                    inst.rates.float(), DELTA, N_PORTS, phase=4)
-    ms = event_ms(lambda: ca.coflow_assign_cuda(
-        fi32, fj32, sz32, inst.rates.float(), DELTA, n_ports=N_PORTS), reps=5)
-    bytes_s = (BYTES_PER_FLOW * F + 4 * inst.K) / HBM_BYTES_PER_S
-    ops_s = OPS_PER_FLOW_CORE * F * inst.K / FP32_OPS_PER_S
-    bound_ms = 1e3 * max(bytes_s, ops_s)
-    log(f"[4] kernel at F={F}: {ms:.3f} ms ({1e6 * ms / F:.1f} ns per flow); "
-        f"plain version {1e3 * plain_main_s:.1f} ms; bound {bound_ms:.6f} ms "
-        f"({'bytes' if bytes_s >= ops_s else 'operations'})")
+    warp_core = ca.coflow_assign_cuda(fi32, fj32, sz32, inst.rates.float(),
+                                      DELTA, n_ports=N_PORTS, kernel="warp")
+    if not torch.equal(warp_core, core):
+        raise AssertionError("the warp kernel's choices differ on the main path")
+    log("[4] the warp kernel (PRs 11-13's main path) makes the same 191,551 "
+        "choices, so run_fast's weighted, p95 and p99 CCT are those it gave")
 
-    # ---- 5. the whole trace -------------------------------------------------
+    # ---- 5. the whole trace ---------------------------------------------
     table526, t_table526 = sync_time(lambda: build_flow_table(
         inst526, order_coflows(inst526)))
     if not bool(((table526.core >= 0) & (table526.core < inst526.K)).all()):
         raise AssertionError("a choice is outside [0, K)")
     args526 = (fi526.int(), fj526.int(), sz526.float(), rates32)
-    ms526 = event_ms(lambda: ca.coflow_assign_cuda(*args526, DELTA,
-                                                   n_ports=N_PORTS), reps=3)
+    chain526 = ca.coflow_assign_cuda(*args526, DELTA, n_ports=N_PORTS)
+    warp526 = ca.coflow_assign_cuda(*args526, DELTA, n_ports=N_PORTS,
+                                    kernel="warp")
+    n_diff = int((chain526 != warp526).sum())
     log(f"[5] M=526: instance {t_inst526:.2f} s; build_flow_table "
-        f"{t_table526:.3f} s for {table526.n_flows} flows; kernel "
-        f"{ms526:.3f} ms ({1e6 * ms526 / table526.n_flows:.1f} ns per flow); "
-        f"every choice in [0, {inst526.K})")
-    log(f"[5] plain version at 4,096 flows: {1e3 * plain_4096_s:.1f} ms")
+        f"{t_table526:.3f} s for {table526.n_flows} flows, every choice in "
+        f"[0, {inst526.K}); chain kernel vs warp kernel on all "
+        f"{chain526.numel()} flows: {n_diff} choices differ")
+    if n_diff:
+        raise AssertionError("chain kernel != warp kernel on the M=526 trace")
+
+    # Both kernels in turns (warp, chain, chain, warp) at both lengths, the
+    # SM clock read beside each timing.
+    def sm_clock_mhz() -> float:
+        return float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.split()[0])
+
+    turns = {}
+    for label, args in (("F=191,551", (fi32, fj32, sz32, inst.rates.float())),
+                        ("F=443,943", args526)):
+        n = args[0].numel()
+        ca.coflow_assign_cuda(*args, DELTA, n_ports=N_PORTS)  # warm
+        for kernel in ("warp", "chain_sm90", "chain_sm90", "warp"):
+            t_ms = event_ms(lambda: ca.coflow_assign_cuda(
+                *args, DELTA, n_ports=N_PORTS, kernel=kernel), reps=5)
+            mhz = sm_clock_mhz()
+            turns.setdefault((label, kernel), []).append((t_ms, mhz))
+            log(f"[5] {label} {kernel}: {t_ms:.3f} ms, {1e6 * t_ms / n:.1f} "
+                f"ns and {1e3 * t_ms * mhz / n:.0f} cycles per flow (SM clock "
+                f"{mhz:.0f} MHz; {smi})")
+        bytes_s = (BYTES_PER_FLOW * n + 4 * inst.K) / HBM_BYTES_PER_S
+        ops_s = OPS_PER_FLOW_CORE * n * inst.K / FP32_OPS_PER_S
+        floor_cycles = CHAIN_CYCLES_PER_OP * chain_dependent_ops(inst.K)
+        floor_ms = floor_cycles * n / (1e3 * mhz)
+        log(f"[5] {label}: roofline bound {1e3 * max(bytes_s, ops_s):.6f} ms "
+            f"({'bytes' if bytes_s >= ops_s else 'operations'}); chain floor "
+            f"{floor_ms:.3f} ms (derived: {chain_dependent_ops(inst.K)} "
+            f"dependent instructions x {CHAIN_CYCLES_PER_OP} cycles = "
+            f"{floor_cycles} cycles a flow at {mhz:.0f} MHz)")
+    ms = sum(t for t, _ in turns[("F=191,551", "chain_sm90")]) / 2
+    warp_ms = sum(t for t, _ in turns[("F=191,551", "warp")]) / 2
+    if ms >= warp_ms:
+        log(f"[5] the chain kernel ({ms:.3f} ms) is not faster than the warp "
+            f"kernel ({warp_ms:.3f} ms) at F=191,551")
+    bytes_s = (BYTES_PER_FLOW * F + 4 * inst.K) / HBM_BYTES_PER_S
+    ops_s = OPS_PER_FLOW_CORE * F * inst.K / FP32_OPS_PER_S
+    bound_ms = 1e3 * max(bytes_s, ops_s)
+    log(f"[5] plain version: {1e3 * plain_main_s:.1f} ms at F={F}, "
+        f"{1e3 * plain_4096_s:.1f} ms at 4,096 flows")
 
     fa_rows = serve_phases(torch, dev, built, sync_time, event_ms)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
 
-    log(json.dumps({"kernels": [{
-        "name": "coflow_assign", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
-        "replaces": "src/repro/kernels/coflow_assign.py:38",
-        "launches": main_launches, "max_abs_err": float(max_err),
-        "ms": ms, "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "library_ms": None}, *fa_rows]}))
+    assign_row = {"route": "cuda",
+                  "replaces": "src/repro/kernels/coflow_assign.py:38",
+                  "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
+                  "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                  "library_ms": None}
+    log(json.dumps({"kernels": [
+        {"name": "coflow_assign",
+         "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
+         "launches": main_launches["chain_sm90"],
+         "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
+        {"name": "coflow_assign_warp",
+         "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
+         "launches": main_launches["warp"],
+         "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
+        *fa_rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

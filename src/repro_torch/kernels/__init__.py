@@ -1,9 +1,13 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
   coflow_assign    — the paper's tau-aware greedy cross-core assignment
-                     (Alg. 1 lines 5-17), CUDA C++ in
-                     ``csrc/coflow_assign.cu``; replaces the Pallas kernel
-                     ``_assign_kernel``.
+                     (Alg. 1 lines 5-17); replaces the Pallas kernel
+                     ``_assign_kernel``. Two CUDA C++ kernels chosen by the
+                     number of cores K: K <= 8 in
+                     ``csrc/coflow_assign_sm90.cu`` (the chain in
+                     registers), 9 <= K <= 32 in ``csrc/coflow_assign.cu``
+                     (one warp, lane k owns core k). ``hazards`` makes the
+                     flow streams they are tested on.
   flash_attention  — blocked causal/local GQA self-attention forward;
                      replaces the Pallas kernel ``_fa_kernel``. Two CUDA C++
                      kernels chosen by dtype: bf16 in

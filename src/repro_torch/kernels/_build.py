@@ -30,11 +30,12 @@ BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 #: Flags of one kernel. No FMA contraction where a kernel must round every
-#: operation as the reference does: the assignment kernel (bit equality),
-#: and the fp32 attention kernel, whose explicit fmaf chains keep their
-#: order under it. The bf16 attention kernel's contract is 2e-2 and takes
-#: no such flag.
+#: operation as the reference does: the two assignment kernels (bit
+#: equality), and the fp32 attention kernel, whose explicit fmaf chains keep
+#: their order under it. The bf16 attention kernel's contract is 2e-2 and
+#: takes no such flag.
 EXTRA_FLAGS = {"coflow_assign": ("-fmad=false",),
+               "coflow_assign_sm90": ("-fmad=false",),
                "flash_attention": ("-fmad=false",)}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

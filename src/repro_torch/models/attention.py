@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops as kops
 
 __all__ = ["NEG_INF", "KVCache", "attend", "attend_xla", "kv_cache_init",
@@ -121,6 +122,9 @@ class KVCache(NamedTuple):
 def kv_cache_init(n_layers: int, batch: int, s_max: int, kv_heads: int,
                   head_dim: int, dtype: torch.dtype = torch.bfloat16, *,
                   device=None) -> KVCache:
+    """An empty cache on ``device`` (``None``: CUDA, and ``RuntimeError``
+    without it; ``"cpu"`` only when asked for)."""
+    device = resolve_device(device)
     shape = (n_layers, batch, s_max, kv_heads, head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

@@ -15,6 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .api import ModelConfig
 from .dense import param_shapes
 
@@ -39,7 +40,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None,
                     ) -> dict[str, torch.Tensor]:
     """The port's dense state dict from the reference's parameter tree.
 
-    Every leaf lands on ``device`` (default: the CPU) in ``dtype`` (default:
+    Every leaf lands on ``device`` (``None``: CUDA, and ``RuntimeError``
+    without it; ``"cpu"`` only when asked for) in ``dtype`` (default:
     ``cfg.dtype``). Raises ``ValueError`` when the tree's names or shapes are
     not those of ``cfg``. Build the model with ``DenseLM.from_state``.
     """
@@ -50,11 +52,12 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None,
         raise ValueError(f"the tree does not match {cfg.name}: expected "
                          f"{want}, got {got}")
     dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
     state = {}
     for name in want:
         arr = flat[name]
         if arr.dtype.type not in _NUMPY_FLOATS:
             arr = arr.astype(np.float32)
         state[name] = torch.from_numpy(np.array(arr)).to(  # a copy
-            device=device or "cpu", dtype=dtype)
+            device=dev, dtype=dtype)
     return state

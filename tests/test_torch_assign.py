@@ -15,6 +15,7 @@ import repro.core as ref
 from repro.kernels.coflow_assign import coflow_assign_fwd
 from repro.kernels.ref import assign_ref
 from repro_torch.kernels import coflow_assign as ca
+from repro_torch.kernels.hazards import HAZARD_DISTANCES, KINDS, hazard_stream
 from repro_torch.kernels.ops import coflow_assign
 from test_kernels_assign import CASES
 
@@ -140,3 +141,86 @@ def test_bitmap_placement(K, N, nz_shared):
     assert stride % 2 == 1 and stride >= N
     assert words * 32 >= N * N
     assert smem <= ca.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# Hazard streams: flows that repeat the ports of a flow 1..4 steps before,
+# runs of one egress port, exact ties and zero sizes. The chain kernel
+# forwards exactly these in registers; tests/test_torch_cuda.py holds it to
+# the plain version on all of them, and here the plain version is held to
+# the Pallas kernel and the oracle on a few (K, N) of each kind.
+# ---------------------------------------------------------------------------
+HAZARD_CASES = [("cell@1", 3, 8), ("col@2", 8, 150), ("row@3", 5, 8),
+                ("mixed", 4, 150), ("run", 2, 150), ("ties", 6, 8),
+                ("zeros", 3, 150), ("cell@4", 1, 512)]
+
+
+@pytest.mark.parametrize("case", HAZARD_CASES, ids=[str(c) for c in HAZARD_CASES])
+def test_plain_matches_pallas_and_oracle_on_hazard_streams(case):
+    kind, K, N = case
+    fi, fj, sz, rates, delta = hazard_stream(kind, K, N)
+    plain, pallas, oracle = _three_way(fi, fj, sz, rates, delta, N)
+    np.testing.assert_array_equal(plain, pallas)
+    np.testing.assert_array_equal(plain, oracle)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_hazard_streams_hit_their_hazard(kind):
+    """Each stream is made from its seed alone and hits what it is named
+    for, often: a port repeated at its distance, a run of one egress port,
+    ties, zero sizes."""
+    fi, fj, sz, rates, delta = hazard_stream(kind, 3, 150)
+    again = hazard_stream(kind, 3, 150)
+    for a, b in zip((fi, fj, sz, rates), again[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert fi.dtype == fj.dtype == np.int32 and sz.dtype == np.float32
+    assert fi.min() >= 0 and fj.max() < 150 and rates.shape == (3,)
+    if "@" in kind:
+        what, d = kind.split("@")
+        d = int(d)
+        assert d in HAZARD_DISTANCES
+        same_i = np.mean(fi[d:] == fi[:-d])
+        same_j = np.mean(fj[d:] == fj[:-d])
+        if what in ("row", "cell"):
+            assert same_i > 0.4
+        if what in ("col", "cell"):
+            assert same_j > 0.4
+    elif kind == "run":
+        assert np.mean(fj[1:] == fj[:-1]) > 0.9
+    elif kind == "ties":
+        assert delta == 0.0 and np.unique(rates).size == 1
+        assert np.unique(sz).size == 1
+    elif kind == "zeros":
+        assert np.mean(sz == 0.0) > 0.4
+    else:  # mixed: every distance and port set shows up
+        assert np.mean(fj[1:] == fj[:-1]) > 0.05
+        assert np.mean(fi[4:] == fi[:-4]) > 0.05
+
+
+def test_routing_and_kernel_choice():
+    """K <= 8 goes to the chain kernel, 9..32 to the warp kernel; a named
+    kernel is checked before anything is launched."""
+    assert [ca.kernel_for(k) for k in (1, 3, 8, 9, 32)] == [
+        "chain_sm90", "chain_sm90", "chain_sm90", "warp", "warp"]
+    f = torch.zeros(4, dtype=torch.int32)
+    sz = torch.ones(4)
+    with pytest.raises(ValueError, match="one of"):
+        ca.coflow_assign_cuda(f, f, sz, torch.ones(3), 1.0, n_ports=4,
+                              kernel="fast")
+    with pytest.raises(ValueError, match="K <= 8"):
+        ca.coflow_assign_cuda(f, f, sz, torch.ones(9), 1.0, n_ports=4,
+                              kernel="chain_sm90")
+    assert set(ca.launches_by_kernel) == set(ca.KERNELS)
+
+
+@pytest.mark.parametrize("K, N, nz_shared", [
+    (3, 150, True), (8, 150, True), (8, 512, False), (1, 400, True)])
+def test_chain_kernel_layout(K, N, nz_shared):
+    """The chain kernel's bitmap (a byte per cell) stays in shared memory
+    while it fits beside the ring and the state, else it goes global."""
+    smem, shared = ca._chain_smem_layout(K, N)
+    assert shared is nz_shared
+    assert smem <= ca.SMEM_LIMIT
+    ring = ca.CHAIN_CHUNK * ca.CHAIN_STAGES
+    assert smem == 16 * ca.CHAIN_STAGES + 20 * ring + 16 * N * K + (
+        N * N if shared else 0)

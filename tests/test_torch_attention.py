@@ -464,6 +464,19 @@ def test_kv_cache_init_matches_reference():
     assert got.length.dtype == got.positions.dtype == torch.int32
 
 
+def test_kv_cache_init_defaults_to_cuda():
+    """Without ``device`` the cache goes to CUDA: with no card that raises
+    instead of landing on the CPU; ``device="cpu"`` is honoured."""
+    if torch.cuda.is_available():
+        cache = port_attn.kv_cache_init(2, 1, 4, 2, 8, torch.float32)
+        assert all(t.is_cuda for t in cache)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_attn.kv_cache_init(2, 1, 4, 2, 8, torch.float32)
+    cache = port_attn.kv_cache_init(2, 1, 4, 2, 8, torch.float32, device="cpu")
+    assert all(t.device.type == "cpu" for t in cache)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_swiglu_and_cross_entropy_match_reference(dt):
     rng = np.random.default_rng(5)

@@ -12,8 +12,12 @@ import pytest
 import torch
 
 import repro_torch.core as port
+import ctypes
+
+from repro_torch.kernels import _build
 from repro_torch.kernels import coflow_assign as ca
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.hazards import KINDS, hazard_stream
 from repro_torch.kernels.ops import coflow_assign, flash_attention
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.attention import attend
@@ -98,6 +102,68 @@ def test_run_fast_on_the_card_equals_the_cpu_run(dev):
     port.validate(gpu)
     for name in ("core", "t_establish", "t_complete", "ccts"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+def _on(dev, fi, fj, sz, rates):
+    return tuple(torch.as_tensor(a, device=dev) for a in (fi, fj, sz, rates))
+
+
+@pytest.mark.parametrize("n_ports", [8, 150, 512])
+@pytest.mark.parametrize("kind", KINDS)
+def test_chain_kernel_equals_plain_on_hazard_streams(dev, kind, n_ports):
+    """The chain kernel forwards the commits of the flows just ahead in
+    registers: held to the plain version on streams that hit every such
+    hazard, for every K it serves (1..8)."""
+    for K in range(1, ca.CHAIN_MAX_CORES + 1):
+        fi, fj, sz, rates, delta = hazard_stream(kind, K, n_ports)
+        args = _on(dev, fi, fj, sz, rates)
+        before = dict(ca.launches_by_kernel)
+        got = ca.coflow_assign_cuda(*args, delta, n_ports=n_ports)
+        torch.cuda.synchronize()
+        assert ca.launches_by_kernel == {
+            **before, "chain_sm90": before["chain_sm90"] + 1}
+        want = ca.coflow_assign_plain(*args, delta, n_ports=n_ports)
+        assert torch.equal(got, want), (kind, K, n_ports)
+
+
+@pytest.mark.parametrize("K", [9, 32])
+@pytest.mark.parametrize("kind", ["cell@1", "col@2", "mixed", "ties"])
+def test_warp_kernel_serves_more_than_eight_cores(dev, kind, K):
+    fi, fj, sz, rates, delta = hazard_stream(kind, K, 150)
+    args = _on(dev, fi, fj, sz, rates)
+    before = dict(ca.launches_by_kernel)
+    got = ca.coflow_assign_cuda(*args, delta, n_ports=150)
+    assert ca.launches_by_kernel == {**before, "warp": before["warp"] + 1}
+    assert torch.equal(got, ca.coflow_assign_plain(*args, delta, n_ports=150))
+
+
+@pytest.mark.parametrize("K, N", [(3, 150), (8, 512)])
+def test_chain_kernel_equals_warp_kernel_at_length(dev, K, N):
+    """At 20,000 flows, where the plain version is slow, the two kernels
+    agree choice for choice (the warp kernel named for the comparison)."""
+    args = _flows(dev, 20_000, K, N, seed=K * N, n_distinct=40)
+    chain = ca.coflow_assign_cuda(*args, 8.0, n_ports=N)
+    warp = ca.coflow_assign_cuda(*args, 8.0, n_ports=N, kernel="warp")
+    assert torch.equal(chain, warp)
+
+
+def test_chain_kernel_layout_agrees_with_the_source(dev):
+    fn = _build.load("coflow_assign_sm90").coflow_assign_sm90_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for K in range(1, 9):
+        for N in (8, 150, 400, 512):
+            smem, shared = ca._chain_smem_layout(K, N)
+            assert fn(K, N, int(shared)) == smem
+
+
+def test_run_fast_goes_through_the_chain_kernel(dev):
+    trace = port.synth_fb_trace(200, seed=7)
+    inst = port.sample_instance(trace, N=24, M=60, rates=[10, 20, 30],
+                                delta=8.0, seed=3, device=dev)
+    before = dict(ca.launches_by_kernel)
+    port.run_fast(inst)
+    assert ca.launches_by_kernel == {
+        **before, "chain_sm90": before["chain_sm90"] + 1}
 
 
 # ---------------------------------------------------------------------------

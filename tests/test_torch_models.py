@@ -238,11 +238,29 @@ def test_params_from_jax_refuses_a_tree_of_another_config():
     with pytest.raises(ValueError, match="does not match"):
         params_from_jax(tree, other)
     state = params_from_jax(tree, port_configs.get_arch(
-        "tinyllama-1.1b").smoke)
+        "tinyllama-1.1b").smoke, device="cpu")
     assert all(t.dtype == torch.bfloat16 for t in state.values())
     np.testing.assert_array_equal(
         state["blocks.wq"].float().numpy(),
         np.asarray(params["blocks"]["wq"], np.float32))
+
+
+def test_params_from_jax_defaults_to_cuda():
+    """Without ``device`` the weights go to CUDA, as every entry point of
+    the port does: with no card that raises instead of landing on the CPU;
+    ``device="cpu"`` is honoured when asked for."""
+    cfg = port_configs.get_arch("tinyllama-1.1b").smoke
+    params, _ = ref_build(ref_configs.get_arch("tinyllama-1.1b").smoke).init(
+        jax.random.key(0))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    if torch.cuda.is_available():
+        state = params_from_jax(tree, cfg)
+        assert all(t.is_cuda for t in state.values())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_jax(tree, cfg)
+    state = params_from_jax(tree, cfg, device="cpu")
+    assert all(t.device.type == "cpu" for t in state.values())
 
 
 def test_seeded_initialisation_is_reproducible():

@@ -56,7 +56,25 @@ non-zero without printing a result):
      ``build_decode`` steps; the last decode logits are held to
      ``_forward_train`` on the whole 2,064-token sequence (6e-2), and a
      ``torch.profiler`` trace of one prefill and one decode step gives the
-     device time by kind of kernel.
+     device time by kind of kernel;
+  9. the online path at full width: ``sample_online_instance`` of the same
+     trace (N=150, M=200: phase 4's coflows, 191,551 flows, released over
+     phase 4's makespan) through ``run_fast_online`` (one launch of the
+     chain kernel on the arrival-ordered flows, none of the warp kernel) and
+     ``validate(releases=)``, every CCT against release + delta + rho/R,
+     weighted and tail CCT and the price of arrival (online over offline
+     weighted CCT), each stage's time, the chain kernel against the warp
+     kernel on every online flow and against its plain version on the first
+     4,096, and the kernel's agreement with the fp64 host backend's choices,
+     online and offline, and the weighted-CCT drift it causes, beside the
+     reference's stated precision contract (>= 97%, < 2%);
+ 10. the paper's ablation grid: ``run_batch`` over the five algorithms and
+     the three list policies (the sunflow baselines once), offline and
+     online, on the M=48 trace instance (N=150), the fp64 host backend for
+     every point and the kernel for the tau-aware ones, weighted CCT
+     normalized to ``ours`` and each point's wall time; then, on the small
+     N=24, M=60 instance, every grid point on the card against the same
+     point on the CPU, bit for bit in choices, t_establish and CCTs.
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -100,6 +118,10 @@ def chain_dependent_ops(k_cores: int) -> int:
 
 TRACE_COFLOWS, TRACE_SEED = 526, 2026
 N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
+#: Coflows of phase 10's ablation grid: 25,217 flows at N=150. M=50 (54,251
+#: flows) took 312.7 s on the card's host, over the phase's 150 s cap, the
+#: priority-guard points most of it (PERF.md, PR 15).
+M_GRID = 48
 #: tests/test_kernels_assign.py CASES: (F, K, N, delta).
 CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
 
@@ -361,7 +383,7 @@ def main() -> int:
     core, t_kernel = sync_time(lambda: coflow_assign(
         fi, fj, size, inst.rates, inst.delta, n_ports=inst.N))
     table = FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core.long(), size=size)
-    (t_est, srv), t_loop = sync_time(lambda: _times_for_table(inst, table))
+    (t_est, srv), t_loop = sync_time(lambda: _times_for_table(inst, pi, table))
     ccts2, t_ccts = sync_time(lambda: _ccts_from_times(inst, pi, table, t_est, srv))
     if not torch.equal(ccts2, ccts):
         raise AssertionError("stage-by-stage CCTs differ from run_fast's")
@@ -453,6 +475,9 @@ def main() -> int:
 
     fa_rows = serve_phases(torch, dev, built, sync_time, event_ms)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
+    online_launches = online_phases(torch, dev, sync_time, kernel_vs_plain,
+                                    trace, inst, sched)
+    log(f"[10] phases 1-10 took {time.perf_counter() - t_start:.1f} s")
 
     assign_row = {"route": "cuda",
                   "replaces": "src/repro/kernels/coflow_assign.py:38",
@@ -462,17 +487,213 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "coflow_assign",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
-         "launches": main_launches["chain_sm90"],
+         "launches": main_launches["chain_sm90"]
+         + online_launches["chain_sm90"],
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
         {"name": "coflow_assign_warp",
          "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
-         "launches": main_launches["warp"],
+         "launches": main_launches["warp"] + online_launches["warp"],
          "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
         *fa_rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
+    """Phases 9-10: the online path at full width and the ablation grid.
+    Returns phase 9's assignment-kernel launches by kernel."""
+    from repro_torch.core import (ALGORITHMS, BACKENDS, assign_fast,
+                                  extract_flows, online_orders,
+                                  order_coflows, run_batch, run_fast,
+                                  run_fast_metrics, run_fast_online,
+                                  sample_instance, sample_online_instance,
+                                  synth_fb_trace, tail_cct, validate)
+    from repro_torch.core.coflow import col_loads, row_loads
+    from repro_torch.core.engine import (FlowTable, _ccts_from_times,
+                                         _times_for_table)
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.kernels.ops import coflow_assign
+
+    # ---- 9. the online path at full width ------------------------------
+    span = float(sched.ccts.max())
+    oinst, t_inst = sync_time(lambda: sample_online_instance(
+        trace, N=N_PORTS, M=M_MAIN, rates=RATES, delta=DELTA, span=span,
+        seed=0, device=dev))
+    if not torch.equal(oinst.inst.demand, inst.demand):
+        raise AssertionError("the online instance must hold phase 4's coflows")
+    rel = oinst.releases
+    log(f"[9] online instance: phase 4's {inst.M} coflows released over "
+        f"[0, {span!r}] (phase 4's makespan) from the trace's arrival "
+        f"stamps; sampled and moved to the card in {t_inst:.2f} s")
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    osched, t_run = sync_time(lambda: run_fast_online(oinst))
+    launches = dict(ca.launches_by_kernel)
+    if launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
+        raise AssertionError(f"run_fast_online must launch the chain kernel "
+                             f"once and the warp kernel never; counted "
+                             f"{launches}")
+    _, t_val = sync_time(lambda: validate(osched, releases=rel))
+    F = osched.n_flows
+    ccts = osched.ccts
+    if ccts.shape != (inst.M,) or not bool(torch.isfinite(ccts).all()) \
+            or not bool((ccts > 0).all()):
+        raise AssertionError("online CCTs must be finite and positive")
+    lb = rel + (inst.delta + torch.maximum(row_loads(inst.demand).amax(1),
+                                           col_loads(inst.demand).amax(1))
+                / inst.R)
+    if not bool((ccts >= lb * (1 - 1e-12)).all()):
+        raise AssertionError("an online CCT is below release + delta + rho/R")
+    wcct = osched.total_weighted_cct
+    p95, p99 = tail_cct(osched, 0.95), tail_cct(osched, 0.99)
+    log(f"[9] run_fast_online: {F} flows, assignment kernel launches "
+        f"{launches}, {t_run:.3f} s end to end; validate(releases=) passed "
+        f"in {t_val:.3f} s")
+    log(f"[9] weighted CCT {wcct!r}  p95 CCT {p95!r}  p99 CCT {p99!r}  "
+        f"(every CCT >= release + delta + rho/R); price of arrival "
+        f"{wcct / sched.total_weighted_cct!r} (online / phase 4's weighted "
+        f"CCT)")
+
+    # the same pipeline stage by stage, synchronised around each stage
+    (arrival, flows), t_order = sync_time(lambda: (lambda a: (
+        a, extract_flows(inst, a)))(online_orders(inst, rel)[0]))
+    pos, cid, fi, fj, size = flows
+    core, t_kernel = sync_time(lambda: coflow_assign(
+        fi, fj, size, inst.rates, inst.delta, n_ports=inst.N))
+    table = FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core.long(),
+                      size=size)
+    (t_est, srv), t_loop = sync_time(lambda: _times_for_table(
+        inst, arrival, table, releases=rel))
+    ccts2, t_ccts = sync_time(lambda: _ccts_from_times(
+        inst, arrival, table, t_est, srv))
+    if not torch.equal(ccts2, ccts):
+        raise AssertionError("stage-by-stage CCTs differ from run_fast_online's")
+    log(f"[9] stages: online order+extract {t_order:.4f} s | kernel "
+        f"{t_kernel:.4f} s | host event loop (with copies) {t_loop:.3f} s | "
+        f"CCTs {t_ccts:.4f} s | referee {t_val:.3f} s")
+
+    fi32, fj32, sz32 = fi.int(), fj.int(), size.float()
+    rates32 = inst.rates.float()
+    warp = ca.coflow_assign_cuda(fi32, fj32, sz32, rates32, DELTA,
+                                 n_ports=N_PORTS, kernel="warp")
+    n_diff = int((warp != core).sum())
+    log(f"[9] chain kernel vs warp kernel on all {F} arrival-ordered flows: "
+        f"{n_diff} choices differ")
+    if n_diff:
+        raise AssertionError("chain kernel != warp kernel on the online flows")
+    kernel_vs_plain("first 4,096 arrival-ordered flows", fi32[:4096],
+                    fj32[:4096], sz32[:4096], rates32, DELTA, N_PORTS, phase=9)
+    # The kernel keeps its state in fp32 (the Pallas kernel's contract);
+    # the fp64 host backend is the reference's default. Their agreement and
+    # the weighted-CCT drift it causes are printed beside the reference's
+    # stated contract (>= 97%, < 2%), which its stress test checks at
+    # F of about 4,000: one flipped near-tie changes every later prefix
+    # state, so the agreement is printed by prefix too.
+    fp64, t_fp64 = sync_time(lambda: assign_fast(inst, arrival, flows=flows))
+    same = fp64 == table.core
+    prefixes = "; ".join(f"first {n:,}: {float(same[:n].float().mean()):.4%}"
+                         for n in (4096, 16384, 65536) if n < F) or "-"
+    first_diff = int(torch.nonzero(~same)[0, 0]) if not bool(same.all()) else F
+    log(f"[9] kernel (fp32 state) vs the fp64 host backend on the online "
+        f"flows: {int(same.sum())} of {F} choices agree "
+        f"({float(same.float().mean()):.4%}; the reference's contract: >= "
+        f"97%); {prefixes}; first difference at flow {first_diff}; the fp64 "
+        f"backend took {t_fp64:.3f} s")
+    off_pi = order_coflows(inst)
+    off_flows = extract_flows(inst, off_pi)
+    off_same = assign_fast(inst, off_pi, flows=off_flows) == coflow_assign(
+        *off_flows[2:], inst.rates, inst.delta, n_ports=inst.N).long()
+    log(f"[9] the same offline (phase 4's pi-ordered flows): "
+        f"{int(off_same.sum())} of {F} agree "
+        f"({float(off_same.float().mean()):.4%})")
+    for mode, w32, releases in (("online", wcct, rel),
+                                 ("offline", sched.total_weighted_cct, None)):
+        (ccts64, _), t_run64 = sync_time(lambda: run_fast_metrics(
+            inst, releases=releases, backend="numpy"))
+        w64 = float((inst.weights * ccts64).sum())
+        log(f"[9] weighted CCT {mode} with the fp64 backend's choices "
+            f"{w64!r} ({t_run64:.3f} s); drift of the kernel's "
+            f"{abs(w32 - w64) / w64:.4%} (the reference's contract: < 2%)")
+
+    # ---- 10. the ablation grid -----------------------------------------
+    t10 = time.perf_counter()
+    policies = ("work-conserving", "priority-guard", "reserving")
+    grid = sample_instance(trace, N=N_PORTS, M=M_GRID, rates=RATES,
+                           delta=DELTA, seed=0, device=dev)
+    kw = dict(schedulings=policies, materialize="metrics", check="none")
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    offline = run_batch([grid], ALGORITHMS, backend="numpy", **kw)
+    span_g = offline.filter(algorithm="ours",
+                            scheduling="work-conserving").rows[0].makespan
+    ogrid = sample_online_instance(trace, N=N_PORTS, M=M_GRID, rates=RATES,
+                                   delta=DELTA, span=span_g, seed=0,
+                                   device=dev)
+    online = run_batch([ogrid], ALGORITHMS, backend="numpy", **kw)
+    host_launches = dict(ca.launches_by_kernel)
+    kern = run_batch([grid, ogrid], ("ours", "sunflow-core"), backend="kernel",
+                     **kw)
+    grid_launches = dict(ca.launches_by_kernel)
+    t10 = time.perf_counter() - t10
+    if host_launches != {"chain_sm90": 0, "warp": 0} or grid_launches != {
+            "chain_sm90": len(kern), "warp": 0}:
+        raise AssertionError(f"the host backend must launch nothing and each "
+                             f"kernel point the chain kernel once; counted "
+                             f"{host_launches}, then {grid_launches}")
+    log(f"[10] ablation grid on the M={M_GRID}, N={N_PORTS} trace instance "
+        f"({offline.rows[0].n_flows} flows; online releases over its offline "
+        f"makespan {span_g!r}): {len(offline) + len(online) + len(kern)} "
+        f"points in {t10:.1f} s, chain kernel launches {grid_launches} "
+        f"(one per kernel point, none on the host backend)")
+    for mode, idx, host in (("offline", 0, offline), ("online", 1, online)):
+        base = host.filter(algorithm="ours",
+                           scheduling="work-conserving").rows[0].weighted_cct
+        rows = [("numpy", r) for r in host] + [
+            ("kernel", r) for r in kern.filter(instance=idx)]
+        for backend, r in rows:
+            log(f"[10]   {mode:7s} {backend:6s} {r.algorithm:12s} "
+                f"{r.scheduling:15s} weighted CCT {r.weighted_cct!r} "
+                f"({r.weighted_cct / base:.4f} x ours work-conserving fp64)"
+                f"  p99 {r.p99!r}  wall {r.wall_s:.3f} s")
+    if t10 > 150:
+        log(f"[10] the grid took {t10:.1f} s, more than 150 s: cut M_GRID")
+
+    small_trace = synth_fb_trace(200, seed=7)
+    small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
+                                delta=DELTA, seed=3, device=d)
+             for d in (dev, "cpu")}
+    span_s = float(run_fast(small["cpu"]).ccts.max())
+    osmall = {d: sample_online_instance(small_trace, N=24, M=60, rates=RATES,
+                                        delta=DELTA, span=span_s, seed=3,
+                                        device=d)
+              for d in (dev, "cpu")}
+    n_points = 0
+    for backend in BACKENDS:
+        for alg in ALGORITHMS:
+            for sched_ in (("sunflow",) if "sunflow" in alg else policies):
+                kw = dict(seed=3, scheduling=sched_, backend=backend)
+                for mode in ("offline", "online"):
+                    if mode == "offline":
+                        gpu = run_fast(small[dev], alg, **kw)
+                        cpu = run_fast(small["cpu"], alg, **kw)
+                        validate(gpu)
+                    else:
+                        gpu = run_fast_online(osmall[dev], alg, **kw)
+                        cpu = run_fast_online(osmall["cpu"], alg, **kw)
+                        validate(gpu, releases=osmall[dev].releases)
+                    for name in ("pi", "core", "t_establish", "ccts"):
+                        if not torch.equal(getattr(gpu, name).cpu(),
+                                           getattr(cpu, name)):
+                            raise AssertionError(
+                                f"small instance, {mode} {alg} {sched_} "
+                                f"{backend}: GPU {name} differs from CPU")
+                    n_points += 1
+    log(f"[10] small instance (N=24, M=60, {cpu.n_flows} flows): all "
+        f"{n_points} grid points (5 algorithms x their policies x "
+        f"{len(BACKENDS)} backends x offline/online) equal on GPU and CPU in "
+        f"choices, t_establish and CCTs, and pass validate")
+    return launches
 
 
 def device_time_by_kind(torch, fn):

@@ -22,7 +22,9 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "Instance",
+    "OnlineInstance",
     "instance_from_arrays",
+    "online_instance_from_arrays",
     "row_loads",
     "col_loads",
     "rho",
@@ -90,6 +92,31 @@ class Instance:
         return float(self.rates.cpu().numpy().sum())
 
 
+@dataclasses.dataclass(frozen=True)
+class OnlineInstance:
+    """An :class:`Instance` plus per-coflow release (arrival) times.
+
+    ``releases[m]`` is the time coflow ``m`` (original id order) becomes
+    known; nothing of it may be assigned or scheduled earlier. It is kept as
+    an ``(M,)`` float64 tensor on the instance's device (array-likes are
+    converted).
+    """
+
+    inst: Instance
+    releases: torch.Tensor  # (M,) float64, >= 0
+
+    def __post_init__(self) -> None:
+        r = torch.as_tensor(self.releases, dtype=torch.float64,
+                            device=self.inst.device)
+        if tuple(r.shape) != (self.inst.M,):
+            raise ValueError(
+                f"releases must have shape ({self.inst.M},), got "
+                f"{tuple(r.shape)}")
+        if bool((r < 0).any()):
+            raise ValueError("release times must be >= 0")
+        object.__setattr__(self, "releases", r)
+
+
 def instance_from_arrays(
     demand: np.ndarray,   # (M, N, N)
     weights: np.ndarray,  # (M,)
@@ -114,6 +141,23 @@ def instance_from_arrays(
                     cids=put(cids, torch.int64),
                     rates=put(rates, torch.float64),
                     delta=float(delta))
+
+
+def online_instance_from_arrays(
+    demand: np.ndarray,    # (M, N, N)
+    weights: np.ndarray,   # (M,)
+    cids: np.ndarray,      # (M,)
+    rates: np.ndarray,     # (K,)
+    delta: float,
+    releases: np.ndarray,  # (M,)
+    *,
+    device: str | torch.device | None = None,
+) -> OnlineInstance:
+    """Build an :class:`OnlineInstance` on ``device`` from host arrays."""
+    inst = instance_from_arrays(demand, weights, cids, rates, delta,
+                                device=device)
+    return OnlineInstance(inst=inst, releases=np.asarray(releases,
+                                                         dtype=np.float64))
 
 
 def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,26 @@
-"""Offline Algorithm 1 end to end: flat flow table, assignment, event loop.
+"""Algorithm 1 and its ablation end to end: flat flow table, assignment,
+event loops, offline and online.
 
-Port of the offline path of ``repro.core.engine``. The pipeline of
-:func:`run_fast` is
+Port of the one-shot paths of ``repro.core.engine``. The pipeline of
+:func:`run_fast` (and of :func:`run_fast_online`, with the arrival order in
+place of pi) is
 
-  1. WSPT order pi and flow extraction, on the device (``ordering``,
-     ``coflow.extract_flows``);
-  2. tau-aware cross-core assignment, the CUDA kernel
-     (``kernels.ops.coflow_assign``);
-  3. service times, on the device, then the merged all-cores circuit event
-     loop on the host: the flow table goes to the host once and the
-     establishment times come back once;
+  1. WSPT order pi (online: arrival order) and flow extraction, on the
+     device (``ordering``, ``online.online_orders``, ``coflow.extract_flows``);
+  2. cross-core assignment: the tau-aware CUDA kernel
+     (``kernels.ops.coflow_assign``) under ``backend="kernel"``, else the fp64
+     host backend (``assignment``);
+  3. service times on the device, then the circuit event loops on the host:
+     the flow table goes to the host once and the establishment times come
+     back once;
   4. CCTs on the device (``scatter_reduce(..., "amax")``).
 
-The event loop stays host code over numpy arrays, in a copy the port owns.
-It is sequential logic with no kernel in the reference, it relies on numpy's
-last-write-wins fancy assignment with duplicate indices (``_first_occurrence``;
-torch's ``index_put_`` leaves that order undefined), and it runs per-event
-operations on tiny arrays, where torch's per-call overhead would dominate.
-Moving it onto the card is later work.
+The event loops stay host code over numpy arrays, in a copy the port owns.
+They are sequential logic with no kernel in the reference, they rely on
+numpy's last-write-wins fancy assignment with duplicate indices
+(``_first_occurrence``; torch's ``index_put_`` leaves that order undefined),
+and they run per-event operations on tiny arrays, where torch's per-call
+overhead would dominate. Moving them onto the card is later work.
 
 Completion times keep the reference's float associativity,
 ``(t + delta) + size/rate``, so establishment times and CCTs are
@@ -33,25 +36,34 @@ import torch
 
 from repro_torch.kernels.ops import coflow_assign
 
-from .coflow import Instance, extract_flows
+from .assignment import FlatAssignState, _host_f64, assign_fast
+from .coflow import Instance, OnlineInstance, extract_flows
+from .online import online_orders
 from .ordering import order_coflows
-from .scheduler import Schedule
+from .scheduler import ALGORITHMS, Schedule
 
-__all__ = ["FlowTable", "SCHEDULINGS", "ALGORITHMS", "build_flow_table",
-           "run_fast", "run_fast_metrics"]
+__all__ = ["ALGORITHMS", "BACKENDS", "FlowTable", "SCHEDULINGS",
+           "build_flow_table", "run_fast", "run_fast_metrics",
+           "run_fast_online"]
 
-#: Intra-core policies of the offline port (``sunflow`` is not ported yet).
-SCHEDULINGS = ("work-conserving", "priority-guard", "reserving")
+#: Intra-core policies. ``sunflow`` is the coflow-at-a-time policy of the
+#: SUNFLOW-CORE baselines.
+SCHEDULINGS = ("work-conserving", "priority-guard", "reserving", "sunflow")
 
-#: Algorithms the port runs. The reference's others raise
-#: ``NotImplementedError`` naming the ROADMAP entry that ports them.
-ALGORITHMS = ("ours",)
+#: Assignment backends. ``kernel`` (the default, the card's main path) runs
+#: the tau-aware policy on the CUDA kernel (fp32 state, the reference's
+#: ``"pallas"``); ``numpy`` runs the fp64 host backend, bit-identical to the
+#: reference's oracles. The rho-only and random policies have no kernel and
+#: always run the host backend.
+BACKENDS = ("numpy", "kernel")
 
-_NOT_PORTED = {
-    "rho-assign": "ROADMAP queue 1, item 2 (rho-only FlatAssignState)",
-    "rand-assign": "ROADMAP queue 1, item 2 (random FlatAssignState)",
-    "sunflow-core": "ROADMAP queue 1, item 3 (_sunflow_times)",
-    "rand-sunflow": "ROADMAP queue 1, items 2-3 (random policy, _sunflow_times)",
+#: algorithm name -> assignment policy.
+_POLICY_OF = {
+    "ours": "tau-aware",
+    "sunflow-core": "tau-aware",
+    "rho-assign": "rho-only",
+    "rand-assign": "random",
+    "rand-sunflow": "random",
 }
 
 
@@ -72,47 +84,69 @@ class FlowTable:
         return int(self.pos.shape[0])
 
 
-def _check_algorithm(algorithm: str) -> None:
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported yet: "
-            f"{_NOT_PORTED[algorithm]}")
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"unknown algorithm {algorithm!r}; one of "
-                         f"{sorted((*ALGORITHMS, *_NOT_PORTED))}")
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
-def _check_options(scheduling: str, delta_k: object, locality: float,
-                   releases: object = None) -> None:
-    if scheduling == "sunflow":
-        raise NotImplementedError(
-            "scheduling 'sunflow' is not ported yet: ROADMAP queue 1, "
-            "item 3 (_sunflow_times)")
-    if scheduling not in SCHEDULINGS:
+def _resolve_algorithm(algorithm: str, scheduling: str) -> tuple[str, str]:
+    """(assignment policy, effective scheduling) for an algorithm name."""
+    if algorithm not in _POLICY_OF:
         raise ValueError(
-            f"unknown scheduling {scheduling!r}; one of {SCHEDULINGS}")
-    if delta_k is not None or locality:
-        raise NotImplementedError(
-            "delta_k and locality run the fp64 FlatAssignState, which is "
-            "not ported yet: ROADMAP queue 1, item 2")
-    if releases is not None:
-        raise NotImplementedError(
-            "releases (the online path) are not ported yet: ROADMAP "
-            "queue 1, item 4")
+            f"unknown algorithm {algorithm!r}; one of {sorted(ALGORITHMS)}")
+    if algorithm in ("sunflow-core", "rand-sunflow"):
+        scheduling = "sunflow"
+    return _POLICY_OF[algorithm], scheduling
 
 
-def build_flow_table(inst: Instance, pi: torch.Tensor,
-                     algorithm: str = "ours") -> FlowTable:
+def build_flow_table(
+    inst: Instance,
+    pi: torch.Tensor,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    backend: str = "kernel",
+    delta_k: torch.Tensor | np.ndarray | None = None,
+    locality: float = 0.0,
+) -> FlowTable:
     """Demand tensor -> assigned ``FlowTable``, on the instance's device.
 
-    Extracts the flows in pi order and assigns them with the tau-aware
-    kernel (on the CPU, its plain version). Choices equal the reference's
-    ``backend="pallas"`` (fp32 state), not its fp64 numpy backend.
+    Extracts the flows in pi order and assigns them with the policy of
+    ``algorithm``, choosing the implementation exactly as the reference
+    does:
+
+      - a drifted tau-aware run (``delta_k`` differs from ``inst.delta`` on
+        some core) goes to :class:`FlatAssignState` with ``set_delta``, since
+        the kernel prices the nominal delta only;
+      - ``backend="kernel"``, tau-aware and ``locality == 0`` goes to the
+        kernel (on the CPU, its plain version), choices equal to the
+        reference's ``backend="pallas"``;
+      - everything else goes to :func:`assignment.assign_fast`, choices equal
+        to the reference's ``backend="numpy"``.
     """
-    _check_algorithm(algorithm)
-    pos, cid, fi, fj, size = extract_flows(inst, pi)
-    core = coflow_assign(fi, fj, size, inst.rates, inst.delta,
-                         n_ports=inst.N).to(torch.int64)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if delta_k is not None:
+        delta_k = _host_f64(delta_k)
+        if delta_k.shape != (inst.K,):
+            raise ValueError(
+                f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
+    policy, _ = _resolve_algorithm(algorithm, "")
+    flows = extract_flows(inst, pi)
+    pos, cid, fi, fj, size = flows
+    if (policy == "tau-aware" and delta_k is not None
+            and bool(np.any(delta_k != inst.delta))):
+        st = FlatAssignState(policy, inst.rates, inst.delta, inst.N,
+                             seed=seed, locality=locality)
+        for k in range(inst.K):
+            if delta_k[k] != inst.delta:
+                st.set_delta(k, float(delta_k[k]))
+        core = st.assign(fi, fj, size)
+    elif backend == "kernel" and policy == "tau-aware" and not locality:
+        core = coflow_assign(fi, fj, size, inst.rates, inst.delta,
+                             n_ports=inst.N).to(torch.int64)
+    else:
+        core = assign_fast(inst, pi, policy, seed=seed, flows=flows,
+                           locality=locality)
     return FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core, size=size)
 
 
@@ -150,12 +184,14 @@ def _event_loop(
     rout: np.ndarray,   # (F,) int64 egress resource ids (core*N + j)
     srv: np.ndarray,    # (F,) float64 service times size/rate[core]
     core: np.ndarray,   # (F,) int64
-    delta: float,
+    delta: float | np.ndarray,
     n_res: int,
     n_ports: int,
+    t0: float = 0.0,
     guard: bool = False,
+    release: np.ndarray | None = None,
 ) -> np.ndarray:
-    """Merged offline event loop over all cores; flows in priority order.
+    """Merged event loop over all cores; flows in priority order.
 
     Returns t_establish per flow, exactly as the reference's sequential
     list scan: at each event the started set is {flows whose two resources
@@ -165,22 +201,36 @@ def _event_loop(
     both its resources whether or not it starts).
 
     Work-conserving: after each event's fixed point every pending flow has
-    a busy resource, so only flows on resources freed exactly at the next
-    event can start then; candidates come from those resources' flow lists.
-    Event times are copied verbatim from completion times, so the exact
-    float comparisons below are the convention, not a hazard.
+    a busy resource or an unreached release, so only flows on resources
+    freed exactly at the next event, or released exactly then, can start;
+    candidates come from those resources' flow lists and the release lists.
+    ``release`` (per flow) gates eligibility by the exact comparison
+    ``release <= t``; an unreleased flow never protects its ports under
+    ``guard=True``. Event times are copied verbatim from completion and
+    release times, so the exact float comparisons below are the convention,
+    not a hazard. ``t0`` is the time the resources free (the sunflow
+    barrier). ``delta`` is a scalar or a per-flow array (drifted cores).
     """
     F = rin.size
     t_est = np.full(F, -1.0)
     if F == 0:
         return t_est
-    free_in = np.zeros(n_res)
-    free_out = np.zeros(n_res)
+    d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
+    free_in = np.full(n_res, t0)
+    free_out = np.full(n_res, t0)
     done = np.zeros(F, dtype=bool)
     scratch = np.empty(n_res, dtype=np.int64)
-    events: list[float] = []  # heap of future completion times
+    events: list[float] = []  # heap of future completion and release times
     remaining = F
-    t = 0.0
+    t = t0
+    if release is not None:
+        rel_uniq, rel_inv = np.unique(release, return_inverse=True)
+        events.extend(rel_uniq.tolist())
+        heapq.heapify(events)
+        # flow indices grouped by release value, in priority order
+        rel_lists = np.split(np.argsort(rel_inv, kind="stable"),
+                             np.cumsum(np.bincount(rel_inv))[:-1])
+        rel_map = {float(v): lst for v, lst in zip(rel_uniq, rel_lists)}
 
     if guard:
         pending = np.arange(F)
@@ -190,11 +240,16 @@ def _event_loop(
                 pend = pending
                 first_event = False
             else:
-                # Only cores with a completion at t can start flows now.
+                # Only cores with a completion (or a release) at t can
+                # start flows now.
                 act = np.zeros(n_res // n_ports, dtype=bool)
                 act[np.nonzero(free_in == t)[0] // n_ports] = True
                 act[np.nonzero(free_out == t)[0] // n_ports] = True
+                if release is not None:
+                    act[core[pending[release[pending] == t]]] = True
                 pend = pending[act[core[pending]]]
+            if release is not None and pend.size:
+                pend = pend[release[pend] <= t]
             if pend.size:
                 ri, rj = rin[pend], rout[pend]
                 feas = ((free_in[ri] <= t) & (free_out[rj] <= t)
@@ -202,7 +257,8 @@ def _event_loop(
                         & _first_occurrence(rj, scratch))
                 start = pend[feas]
                 if start.size:
-                    tc = (t + delta) + srv[start]
+                    tc = (t + (delta if d_vec is None else d_vec[start])) \
+                        + srv[start]
                     free_in[rin[start]] = tc
                     free_out[rout[start]] = tc
                     t_est[start] = t
@@ -218,14 +274,16 @@ def _event_loop(
 
     in_lists = _by_resource(rin, n_res)
     out_lists = _by_resource(rout, n_res)
-    cand = np.arange(F)  # at t=0 every flow is a candidate
+    cand = np.arange(F)  # at t0 every (released) flow is a candidate
+    if release is not None:
+        cand = cand[release[cand] <= t]
     while remaining:
         cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
         while cand.size:
             safe = _first_occurrence(rin[cand], scratch) \
                 & _first_occurrence(rout[cand], scratch)
             start = cand[safe]
-            tc = (t + delta) + srv[start]
+            tc = (t + (delta if d_vec is None else d_vec[start])) + srv[start]
             free_in[rin[start]] = tc
             free_out[rout[start]] = tc
             t_est[start] = t
@@ -240,106 +298,318 @@ def _event_loop(
         t = _pop_next_event(events, t)
         pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]
         pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]
+        if release is not None:
+            pool.append(rel_map.get(t, np.empty(0, np.int64)))
         cand = np.unique(np.concatenate(pool)) if pool else np.empty(0, np.int64)
         cand = cand[~done[cand]]
+        if release is not None:
+            cand = cand[release[cand] <= t]
     return t_est
 
 
 def _reserving_times(rin: np.ndarray, rout: np.ndarray, srv: np.ndarray,
-                     delta: float, n_res: int) -> np.ndarray:
-    """Strict in-order reservation (no backfill) over merged resources."""
+                     delta: float | np.ndarray, n_res: int,
+                     release: np.ndarray | None = None) -> np.ndarray:
+    """Strict in-order reservation (no backfill) over merged resources.
+
+    ``release`` (per flow) is the online variant: flows come in commitment
+    (arrival) order and each reservation starts no earlier than its
+    release. ``delta`` may be a per-flow array (drifted cores).
+    """
+    d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
     avail_in = np.zeros(n_res)
     avail_out = np.zeros(n_res)
     t_est = np.empty(rin.size)
     for f in range(rin.size):
         i, j = rin[f], rout[f]
         t = avail_in[i] if avail_in[i] >= avail_out[j] else avail_out[j]
-        tc = t + delta + srv[f]
+        if release is not None and release[f] > t:
+            t = release[f]
+        tc = t + (delta if d_vec is None else d_vec[f]) + srv[f]
         avail_in[i] = tc
         avail_out[j] = tc
         t_est[f] = t
     return t_est
 
 
-def _times_for_table(inst: Instance, table: FlowTable,
-                     scheduling: str = "work-conserving",
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def _sunflow_times(
+    pos: np.ndarray,    # (F,) int64, the flow table's columns on the host
+    core: np.ndarray,
+    fi: np.ndarray,
+    fj: np.ndarray,
+    size: np.ndarray,
+    rin: np.ndarray,
+    rout: np.ndarray,
+    srv: np.ndarray,
+    delta: float,
+    n_ports: int,
+    K: int,
+    release: np.ndarray | None = None,
+    prio: np.ndarray | None = None,
+    delta_k: np.ndarray | None = None,
+) -> np.ndarray:
+    """SUNFLOW-CORE: per core, coflows strictly one after another (a
+    barrier), the flows of one coflow largest first with an ``(i, j)``
+    tie-break, through the priority-guarded scan.
+
+    ``release``/``prio`` (per flow; a coflow's flows share both) select the
+    online variant: whenever the core frees, the arrived unserved coflow of
+    best priority rank is served next, idling until the next arrival if
+    none is pending. ``delta_k`` replaces ``delta`` core by core.
+    """
+    t_est = np.full(pos.size, -1.0)
+    idx = np.arange(pos.size)
+    for k in range(K):
+        dk = delta if delta_k is None else float(delta_k[k])
+        on_k = idx[core == k]
+        barrier = 0.0
+        if release is None:
+            serve_order = list(np.unique(pos[on_k]))  # pi order
+        else:
+            rel_of = {int(pos[f]): float(release[f]) for f in on_k}
+            prio_of = {int(pos[f]): int(prio[f]) for f in on_k}
+            # insertion-ordered, so the ready scan below is deterministic
+            unserved = dict.fromkeys(rel_of)
+        while True:
+            if release is None:
+                if not serve_order:
+                    break
+                p = serve_order.pop(0)
+            else:
+                if not unserved:
+                    break
+                ready = [q for q in unserved if rel_of[q] <= barrier]
+                if not ready:
+                    barrier = min(rel_of[q] for q in unserved)
+                    ready = [q for q in unserved if rel_of[q] <= barrier]
+                p = min(ready, key=lambda q: prio_of[q])
+                del unserved[p]
+            grp = on_k[pos[on_k] == p]
+            grp = grp[np.lexsort((fj[grp], fi[grp], -size[grp]))]
+            te = _event_loop(rin[grp], rout[grp], srv[grp], core[grp], dk,
+                             n_res=K * n_ports, n_ports=n_ports, t0=barrier,
+                             guard=True)
+            t_est[grp] = te
+            barrier = max(barrier, float(((te + dk) + srv[grp]).max()))
+    return t_est
+
+
+def _times_for_table(
+    inst: Instance,
+    pi: torch.Tensor,
+    table: FlowTable,
+    scheduling: str = "work-conserving",
+    releases: torch.Tensor | None = None,
+    delta_k: np.ndarray | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Scheduling phase over a ``FlowTable``: ``(t_est, srv)`` on the device.
 
-    Resource ids and service times are computed on the device; the loop
-    runs on host copies and its establishment times go back in one copy.
+    Resource ids, service times and the online keys are computed on the
+    device; the loops run on host copies and the establishment times go
+    back in one copy. ``releases`` (``(M,)``, by original coflow id) selects
+    the online model: the scheduling priority is each coflow's WSPT rank
+    (``online.online_orders``), eligibility is release-gated, and reserving
+    and sunflow run their online variants. ``delta_k`` (already normalized:
+    ``None`` when undrifted) replaces ``inst.delta`` by ``delta_k[core]``
+    per flow.
     """
     if scheduling not in SCHEDULINGS:
         raise ValueError(
             f"unknown scheduling {scheduling!r}; one of {SCHEDULINGS}")
     K, N = inst.K, inst.N
-    rin = table.core * N + table.fi
-    rout = table.core * N + table.fj
     srv = table.size / inst.rates[table.core]
-    rin_h, rout_h, srv_h = rin.cpu().numpy(), rout.cpu().numpy(), srv.cpu().numpy()
-    if scheduling == "reserving":
-        t_est_h = _reserving_times(rin_h, rout_h, srv_h, inst.delta, K * N)
+    rin = _host(table.core * N + table.fi)
+    rout = _host(table.core * N + table.fj)
+    core, srv_h = _host(table.core), _host(srv)
+    dl = inst.delta if delta_k is None else delta_k[core]
+    if scheduling == "sunflow":
+        cols = tuple(_host(t) for t in (table.pos, table.core, table.fi,
+                                        table.fj, table.size))
+    if releases is None:
+        if scheduling == "reserving":
+            t_est = _reserving_times(rin, rout, srv_h, dl, K * N)
+        elif scheduling == "sunflow":
+            t_est = _sunflow_times(*cols, rin, rout, srv_h, inst.delta, N, K,
+                                   delta_k=delta_k)
+        else:
+            t_est = _event_loop(rin, rout, srv_h, core, dl, K * N, N,
+                                guard=(scheduling == "priority-guard"))
     else:
-        t_est_h = _event_loop(rin_h, rout_h, srv_h, table.core.cpu().numpy(),
-                              inst.delta, K * N, N,
-                              guard=(scheduling == "priority-guard"))
-    return torch.from_numpy(t_est_h).to(inst.device), srv
+        rel_orig = torch.as_tensor(releases, dtype=torch.float64,
+                                   device=inst.device)
+        orig = pi[table.pos]
+        _, prio_rank = online_orders(inst, rel_orig)
+        rel_f, prio_f = _host(rel_orig[orig]), prio_rank[orig]
+        if scheduling in ("work-conserving", "priority-guard"):
+            # Flows in scheduling-priority order: WSPT coflow rank, then the
+            # intra-coflow assignment order (stable).
+            perm = _host(torch.argsort(prio_f, stable=True))
+            te = _event_loop(rin[perm], rout[perm], srv_h[perm], core[perm],
+                             dl if delta_k is None else dl[perm], K * N, N,
+                             guard=(scheduling == "priority-guard"),
+                             release=rel_f[perm])
+            t_est = np.empty_like(te)
+            t_est[perm] = te
+        elif scheduling == "reserving":
+            # commitment in arrival order, the flow table's own order
+            t_est = _reserving_times(rin, rout, srv_h, dl, K * N,
+                                     release=rel_f)
+        else:
+            t_est = _sunflow_times(*cols, rin, rout, srv_h, inst.delta, N, K,
+                                   release=rel_f, prio=_host(prio_f),
+                                   delta_k=delta_k)
+    return torch.from_numpy(t_est).to(inst.device), srv
 
 
 def _ccts_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
-                     t_est: torch.Tensor, srv: torch.Tensor) -> torch.Tensor:
-    """Per-coflow CCTs ``(M,)`` in original id order, on the device."""
-    t_complete = (t_est + inst.delta) + srv
+                     t_est: torch.Tensor, srv: torch.Tensor,
+                     delta_f: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-coflow CCTs ``(M,)`` in original id order, on the device.
+    ``delta_f`` is the per-flow delay in force (drifted cores); ``None`` is
+    the uniform ``inst.delta`` with the undrifted float expression."""
+    t_complete = (t_est + (inst.delta if delta_f is None else delta_f)) + srv
     ccts = torch.zeros(inst.M, dtype=torch.float64, device=inst.device)
     return ccts.scatter_reduce(0, pi[table.pos], t_complete, "amax")
 
 
 def _schedule_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
-                         t_est: torch.Tensor, srv: torch.Tensor) -> Schedule:
+                         t_est: torch.Tensor, srv: torch.Tensor,
+                         delta_f: torch.Tensor | None = None) -> Schedule:
     """Rows in the reference's order: core-major, priority order within
     each core."""
     order = torch.argsort(table.core, stable=True)
     te = t_est[order]
-    t_start = te + inst.delta
+    t_start = te + (inst.delta if delta_f is None else delta_f[order])
     return Schedule(inst=inst, pi=pi, pos=table.pos[order],
                     cid=table.cid[order], fi=table.fi[order],
                     fj=table.fj[order], core=table.core[order],
                     size=table.size[order], t_establish=te, t_start=t_start,
                     t_complete=t_start + srv[order],
-                    ccts=_ccts_from_times(inst, pi, table, t_est, srv))
+                    ccts=_ccts_from_times(inst, pi, table, t_est, srv,
+                                          delta_f))
 
 
-def run_fast(inst: Instance, algorithm: str = "ours", *,
-             scheduling: str = "work-conserving", delta_k: object = None,
-             locality: float = 0.0) -> Schedule:
-    """Algorithm 1, offline, on the instance's device: the port of
-    ``repro.core.run_fast(..., backend="pallas")``, with the same choices,
-    establishment times and CCTs.
+def _normalize_delta_k(inst: Instance, delta_k: torch.Tensor | np.ndarray | None,
+                       ) -> np.ndarray | None:
+    """Validate a per-core delay vector (a host float64 array); an
+    all-nominal vector becomes ``None`` so the undrifted pipeline keeps its
+    exact scalar float expressions."""
+    if delta_k is None:
+        return None
+    delta_k = _host_f64(delta_k)
+    if delta_k.shape != (inst.K,):
+        raise ValueError(
+            f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
+    if (delta_k < 0).any():
+        raise ValueError("drifted delta must be >= 0")
+    if np.all(delta_k == inst.delta):
+        return None
+    return delta_k
 
-    ``scheduling`` is ``work-conserving`` (Alg. 1 lines 23-31: any flow
-    whose two ports are idle starts), ``priority-guard`` (pending
-    higher-priority flows protect their ports from backfill) or
-    ``reserving`` (strict in-order reservation). ``delta_k`` and
-    ``locality`` are not ported and raise unless left at their defaults.
+
+def _delta_f(inst: Instance, table: FlowTable,
+             delta_k: np.ndarray | None) -> torch.Tensor | None:
+    if delta_k is None:
+        return None
+    return torch.tensor(delta_k, device=inst.device)[table.core]
+
+
+def run_fast(
+    inst: Instance,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    scheduling: str = "work-conserving",
+    backend: str = "kernel",
+    delta_k: torch.Tensor | np.ndarray | None = None,
+    locality: float = 0.0,
+) -> Schedule:
+    """Algorithm 1 (or a baseline of its ablation), offline, on the
+    instance's device: the port of ``repro.core.run_fast``, with the same
+    choices, establishment times and CCTs as the reference's ``"pallas"``
+    backend under ``backend="kernel"`` and its ``"numpy"`` backend under
+    ``backend="numpy"``.
+
+    ``algorithm`` is one of :data:`ALGORITHMS`; the sunflow baselines always
+    schedule with ``sunflow``. ``scheduling`` is ``work-conserving``
+    (Alg. 1 lines 23-31), ``priority-guard`` (pending higher-priority flows
+    protect their ports from backfill), ``reserving`` (strict in-order
+    reservation) or ``sunflow``. ``seed`` seeds the random policy.
+    ``delta_k`` (per-core drifted delays) prices assignment and scheduling
+    with each core's delay; ``locality`` is the tau-aware batch-affinity
+    bias. Either one runs the fp64 host backend.
     """
-    _check_algorithm(algorithm)
-    _check_options(scheduling, delta_k, locality)
+    delta_k = _normalize_delta_k(inst, delta_k)
     pi = order_coflows(inst)
-    table = build_flow_table(inst, pi, algorithm)
-    t_est, srv = _times_for_table(inst, table, scheduling)
-    return _schedule_from_times(inst, pi, table, t_est, srv)
+    _, scheduling = _resolve_algorithm(algorithm, scheduling)
+    table = build_flow_table(inst, pi, algorithm, seed=seed, backend=backend,
+                             delta_k=delta_k, locality=locality)
+    t_est, srv = _times_for_table(inst, pi, table, scheduling,
+                                  delta_k=delta_k)
+    return _schedule_from_times(inst, pi, table, t_est, srv,
+                                _delta_f(inst, table, delta_k))
 
 
-def run_fast_metrics(inst: Instance, algorithm: str = "ours", *,
-                     scheduling: str = "work-conserving",
-                     releases: object = None, delta_k: object = None,
-                     locality: float = 0.0) -> tuple[torch.Tensor, int]:
-    """Same pipeline as :func:`run_fast`, stopped at the CCTs: returns
-    ``(ccts (M,), n_flows)`` without building a ``Schedule``. ``releases``
-    (the online path) is not ported and raises unless ``None``."""
-    _check_algorithm(algorithm)
-    _check_options(scheduling, delta_k, locality, releases)
-    pi = order_coflows(inst)
-    table = build_flow_table(inst, pi, algorithm)
-    t_est, srv = _times_for_table(inst, table, scheduling)
-    return _ccts_from_times(inst, pi, table, t_est, srv), table.n_flows
+def run_fast_metrics(
+    inst: Instance,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    scheduling: str = "work-conserving",
+    backend: str = "kernel",
+    releases: torch.Tensor | np.ndarray | None = None,
+    delta_k: torch.Tensor | np.ndarray | None = None,
+    locality: float = 0.0,
+) -> tuple[torch.Tensor, int]:
+    """The pipeline of :func:`run_fast` (``releases=None``) or
+    :func:`run_fast_online` (``releases`` ``(M,)`` by original coflow id),
+    stopped at the CCTs: returns ``(ccts (M,), n_flows)`` without building a
+    ``Schedule``."""
+    if releases is None:
+        pi = order_coflows(inst)
+    else:
+        releases = torch.as_tensor(releases, dtype=torch.float64,
+                                   device=inst.device)
+        pi, _ = online_orders(inst, releases)
+    delta_k = _normalize_delta_k(inst, delta_k)
+    _, scheduling = _resolve_algorithm(algorithm, scheduling)
+    table = build_flow_table(inst, pi, algorithm, seed=seed, backend=backend,
+                             delta_k=delta_k, locality=locality)
+    t_est, srv = _times_for_table(inst, pi, table, scheduling, releases,
+                                  delta_k=delta_k)
+    return (_ccts_from_times(inst, pi, table, t_est, srv,
+                             _delta_f(inst, table, delta_k)), table.n_flows)
+
+
+def run_fast_online(
+    oinst: OnlineInstance,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    scheduling: str = "work-conserving",
+    backend: str = "kernel",
+    delta_k: torch.Tensor | np.ndarray | None = None,
+    locality: float = 0.0,
+) -> Schedule:
+    """The online model on the instance's device: the port of
+    ``repro.core.run_fast_online``.
+
+    The pipeline of :func:`run_fast` with the arrival order in place of pi:
+    flows are assigned at arrival, irrevocably, by the same greedy rule over
+    the arrival-ordered flows (under ``backend="kernel"`` the tau-aware
+    kernel receives them in that order), then scheduled with release gating.
+    With all releases 0 the result equals :func:`run_fast`'s bit for bit.
+    The schedule's ``pi`` is the arrival order.
+    """
+    inst = oinst.inst
+    rel = oinst.releases
+    delta_k = _normalize_delta_k(inst, delta_k)
+    arrival, _ = online_orders(inst, rel)
+    _, scheduling = _resolve_algorithm(algorithm, scheduling)
+    table = build_flow_table(inst, arrival, algorithm, seed=seed,
+                             backend=backend, delta_k=delta_k,
+                             locality=locality)
+    t_est, srv = _times_for_table(inst, arrival, table, scheduling,
+                                  releases=rel, delta_k=delta_k)
+    return _schedule_from_times(inst, arrival, table, t_est, srv,
+                                _delta_f(inst, table, delta_k))

@@ -13,7 +13,12 @@ import torch
 
 from .coflow import Instance
 
-__all__ = ["Schedule", "weighted_cct", "tail_quantile", "tail_cct"]
+__all__ = ["ALGORITHMS", "Schedule", "weighted_cct", "tail_quantile",
+           "tail_cct"]
+
+#: The paper's algorithm and the four baselines of its ablation.
+ALGORITHMS = ("ours", "rho-assign", "rand-assign", "sunflow-core",
+              "rand-sunflow")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,6 @@
 """Independent feasibility referee for flat schedules, on the device.
 
-Port of ``repro.core.simulator.validate`` (offline checks), with the same
-tolerances:
+Port of ``repro.core.simulator.validate``, with the same tolerances:
   1. port exclusivity — per core, busy intervals [t_establish, t_complete)
      never overlap on any ingress or egress port;
   2. not-all-stop timing — every flow starts transmitting exactly delta
@@ -9,13 +8,18 @@ tolerances:
   3. demand conservation — per coflow, the assigned sizes sum back to the
      demand matrix entry-wise;
   4. CCT consistency — reported CCTs equal the max completion over each
-     coflow's flows.
+     coflow's flows;
+  5. (online, when ``releases`` is given) release respect — no flow
+     establishes before its coflow's release. Exact comparison: the
+     scheduler starts flows only at event times >= the release float.
 Every check is a tensor comparison on the schedule's device; a violation
 raises ``AssertionError`` naming the first offending flow.
 """
 from __future__ import annotations
 
 import torch
+
+import numpy as np
 
 from .scheduler import Schedule
 
@@ -61,22 +65,41 @@ def _check_exclusivity(s: Schedule, port: torch.Tensor, axis: str) -> None:
             f"[{float(t_est[b])},...)")
 
 
-def validate(s: Schedule) -> None:
-    """Raise ``AssertionError`` unless ``s`` is a feasible offline schedule
-    of its instance with consistent CCTs."""
+def validate(s: Schedule,
+             releases: torch.Tensor | np.ndarray | None = None,
+             flow_delta: torch.Tensor | np.ndarray | None = None) -> None:
+    """Raise ``AssertionError`` unless ``s`` is a feasible schedule of its
+    instance with consistent CCTs.
+
+    ``releases`` (``(M,)``, by original coflow id) adds the online check of
+    release respect. ``flow_delta`` (per flow, aligned with the schedule's
+    rows) overrides the uniform delay in the timing checks (drifted cores).
+    """
     inst = s.inst
     dev = inst.device
     orig = s.pi[s.pos]
     if s.n_flows:
+        # --- 5. release respect (online schedules) ------------------------
+        if releases is not None:
+            rel = torch.as_tensor(releases, dtype=torch.float64,
+                                  device=dev)[orig]
+            b = _first_bad(s.t_establish < rel)
+            if b is not None:
+                raise AssertionError(
+                    f"{_describe(s, b)} establishes before coflow "
+                    f"{int(orig[b])}'s release {float(rel[b])!r}")
+
         # --- 2. timing / non-preemption -----------------------------------
+        dl = (inst.delta if flow_delta is None else torch.as_tensor(
+            flow_delta, dtype=torch.float64, device=dev))
         b = _first_bad(s.t_establish < -_EPS)
         if b is not None:
             raise AssertionError(f"{_describe(s, b)} scheduled before t=0")
-        b = _first_bad((s.t_start - (s.t_establish + inst.delta)).abs() > _EPS)
+        b = _first_bad((s.t_start - (s.t_establish + dl)).abs() > _EPS)
         if b is not None:
             raise AssertionError(
                 f"{_describe(s, b)} violates start = establish + delta")
-        want = s.t_establish + inst.delta + s.size / inst.rates[s.core]
+        want = s.t_establish + dl + s.size / inst.rates[s.core]
         b = _first_bad((s.t_complete - want).abs() > _EPS)
         if b is not None:
             raise AssertionError(

@@ -1,10 +1,10 @@
 """Facebook-trace-style workload generation (Section V-A).
 
-Port of ``repro.core.trace``'s offline samplers. Both draw from numpy's PCG64
-(``np.random.default_rng``) in exactly the reference's order, so one seed
-gives the reference's trace and instance bit for bit: a torch generator
-cannot reproduce that stream. The sampled demand is then moved to the device
-as one stacked tensor.
+Port of ``repro.core.trace``'s samplers and trace parser. The samplers draw
+from numpy's PCG64 (``np.random.default_rng``) in exactly the reference's
+order, so one seed gives the reference's trace and instance bit for bit: a
+torch generator cannot reproduce that stream. The sampled demand (and the
+release times of an online instance) then move to the device in one copy.
 
 ``synth_fb_trace`` is a calibrated surrogate of the FB-2010 coflow benchmark
 (526 coflows from a 150-rack MapReduce cluster; most coflows narrow and small,
@@ -16,14 +16,15 @@ sampled.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from .coflow import Instance, instance_from_arrays
+from .coflow import Instance, OnlineInstance, instance_from_arrays
 
-__all__ = ["TraceCoflow", "synth_fb_trace", "sample_instance"]
+__all__ = ["TraceCoflow", "synth_fb_trace", "load_fb_trace", "sample_instance",
+           "sample_online_instance"]
 
 N_RACKS = 150
 
@@ -70,6 +71,30 @@ def synth_fb_trace(n_coflows: int = 526, seed: int = 2026) -> list[TraceCoflow]:
     return out
 
 
+def load_fb_trace(path: str) -> list[TraceCoflow]:
+    """Parse the real ``FB2010-1Hr-150-0.txt`` benchmark format: an optional
+    ``<machines> <coflows>`` header, then per coflow ``cid arrival_ms n_map
+    mappers... n_red reducer:mb...``."""
+    out: list[TraceCoflow] = []
+    with open(path) as fh:
+        lines = [ln.split() for ln in fh if ln.strip()]
+    if len(lines[0]) == 2:
+        lines = lines[1:]
+    for toks in lines:
+        n_map = int(toks[2])
+        mappers = tuple(int(x) for x in toks[3:3 + n_map])
+        n_red = int(toks[3 + n_map])
+        reducers, red_mb = [], []
+        for rt in toks[4 + n_map:4 + n_map + n_red]:
+            r, mb = rt.split(":")
+            reducers.append(int(r))
+            red_mb.append(float(mb))
+        out.append(TraceCoflow(cid=int(toks[0]), arrival_ms=float(toks[1]),
+                               mappers=mappers, reducers=tuple(reducers),
+                               reducer_mb=tuple(red_mb)))
+    return out
+
+
 def sample_instance(
     trace: list[TraceCoflow],
     *,
@@ -81,8 +106,9 @@ def sample_instance(
     weight_mode: str = "uniform-int",
     weight_params: tuple[float, float] = (1, 10),
     machine_map: str = "restrict",
+    return_pick: bool = False,
     device: str | torch.device | None = None,
-) -> Instance:
+) -> Instance | tuple[Instance, np.ndarray]:
     """Build an N-port, M-coflow instance on ``device`` per Section V-A.
 
     ``machine_map="restrict"``: N of the 150 racks become the ports and only
@@ -90,7 +116,9 @@ def sample_instance(
     targets). ``"fold"``: all racks are folded onto the N ports by a random
     grouping. ``weight_mode`` is ``"uniform-int"`` (integers in
     ``weight_params``), ``"unit"`` or ``"normal"`` (mean, sigma; truncated
-    at 1e-3).
+    at 1e-3). ``return_pick=True`` also returns the picked trace indices
+    (int64 numpy, aligned with the coflows), from which
+    :func:`sample_online_instance` reads the arrival stamps.
     """
     rng = np.random.default_rng(seed)
 
@@ -133,5 +161,38 @@ def sample_instance(
 
     demand = (np.stack([demands[int(t)] for t in pick]) if M
               else np.zeros((0, N, N)))
-    return instance_from_arrays(demand, weights, np.arange(M), rates, delta,
+    inst = instance_from_arrays(demand, weights, np.arange(M), rates, delta,
                                 device=device)
+    if return_pick:
+        return inst, np.asarray(pick, dtype=np.int64)
+    return inst
+
+
+def sample_online_instance(
+    trace: list[TraceCoflow],
+    *,
+    N: int,
+    M: int,
+    rates: Sequence[float],
+    delta: float,
+    span: float,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+    **kw: Any,
+) -> OnlineInstance:
+    """:func:`sample_instance` with release times from the trace's arrival
+    stamps, mapped affinely onto ``[0, span]`` (bursts stay bursts). The map
+    runs in numpy on the host, as in the reference, and the releases move to
+    the device in one copy."""
+    if span < 0:
+        raise ValueError("span must be >= 0")
+    inst, pick = sample_instance(trace, N=N, M=M, rates=rates, delta=delta,
+                                 seed=seed, return_pick=True, device=device,
+                                 **kw)
+    if M == 0:
+        return OnlineInstance(inst=inst, releases=np.zeros(0))
+    arr = np.array([trace[int(t)].arrival_ms for t in pick])
+    lo, hi = float(arr.min()), float(arr.max())
+    rel = (np.zeros(M) if span == 0 or hi == lo
+           else (arr - lo) / (hi - lo) * span)
+    return OnlineInstance(inst=inst, releases=rel)

@@ -166,7 +166,8 @@ def test_instance_rejects_bad_input(bad, match):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.core.assignment, "
+            "repro_torch.core.online, repro_torch.core.batch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

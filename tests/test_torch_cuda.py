@@ -166,6 +166,52 @@ def test_run_fast_goes_through_the_chain_kernel(dev):
         **before, "chain_sm90": before["chain_sm90"] + 1}
 
 
+def _small_online(device, span=400.0):
+    return port.sample_online_instance(
+        port.synth_fb_trace(200, seed=7), N=24, M=60, rates=[10, 20, 30],
+        delta=8.0, span=span, seed=3, device=device)
+
+
+def test_run_fast_online_goes_through_the_chain_kernel(dev):
+    oinst = _small_online(dev)
+    before = dict(ca.launches_by_kernel)
+    s = port.run_fast_online(oinst)
+    assert ca.launches_by_kernel == {
+        **before, "chain_sm90": before["chain_sm90"] + 1}
+    port.validate(s, releases=oinst.releases)
+
+
+@pytest.mark.parametrize("kw", [dict(backend="numpy"), dict(locality=0.5),
+                                dict(delta_k=[8.0, 12.0, 8.0])])
+def test_host_backend_runs_launch_no_kernel(dev, kw):
+    """``backend="numpy"``, ``locality > 0`` and a drifted ``delta_k`` run
+    the fp64 host backend, offline and online, and launch nothing."""
+    oinst = _small_online(dev)
+    before = dict(ca.launches_by_kernel)
+    for alg in ("ours", "sunflow-core"):
+        port.run_fast(oinst.inst, alg, **kw)
+        port.run_fast_online(oinst, alg, **kw)
+    assert ca.launches_by_kernel == before
+
+
+POINTS = [(a, s) for a in port.ALGORITHMS
+          for s in (("sunflow",) if "sunflow" in a else
+                    ("work-conserving", "priority-guard", "reserving"))]
+
+
+@pytest.mark.parametrize("backend", port.BACKENDS)
+def test_online_grid_on_the_card_equals_the_cpu_run(dev, backend):
+    runs = {d: _small_online(d) for d in (dev, "cpu")}
+    for alg, sched in POINTS:
+        kw = dict(seed=3, scheduling=sched, backend=backend)
+        gpu = port.run_fast_online(runs[dev], alg, **kw)
+        cpu = port.run_fast_online(runs["cpu"], alg, **kw)
+        port.validate(gpu, releases=runs[dev].releases)
+        for name in ("pi", "core", "t_establish", "t_complete", "ccts"):
+            assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), \
+                (alg, sched, name)
+
+
 # ---------------------------------------------------------------------------
 # The flash-attention kernel vs its plain version
 # ---------------------------------------------------------------------------

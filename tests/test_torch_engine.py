@@ -1,11 +1,13 @@
 """The port's offline engine and referee vs the reference, on the CPU.
 
-``repro_torch.core.run_fast`` is the port of ``repro.core.run_fast(...,
-backend="pallas")``: the same fp32 tau-aware choices (the kernel's plain
-version on the CPU), then the same event loop, so choices, establishment
-times and CCTs must be bit-identical. Only the weighted sum and the tail
-quantile are reduced in another order (torch vs numpy), hence rtol 1e-12
-there.
+``repro_torch.core.run_fast`` is the port of ``repro.core.run_fast``: under
+``backend="kernel"`` (the default) the fp32 tau-aware choices of the
+kernel's plain version, as the reference's ``"pallas"``; under
+``backend="numpy"`` the fp64 host backend, as the reference's ``"numpy"``.
+The event loops are the reference's, so choices, establishment times and
+CCTs must be bit-identical for all five algorithms and all four scheduling
+policies. Only the weighted sum and the tail quantile are reduced in another
+order (torch vs numpy), hence rtol 1e-12 there.
 """
 import dataclasses
 
@@ -22,6 +24,9 @@ from test_engine_differential import _random_instance
 from test_torch_coflow import to_port
 
 POLICIES = ("work-conserving", "priority-guard", "reserving")
+#: (algorithm, scheduling) of the whole grid: the sunflow baselines once.
+POINTS = [(a, s) for a in ref.ALGORITHMS
+          for s in (("sunflow",) if "sunflow" in a else POLICIES)]
 TRIALS = (1, 4, 9, 13, 22, 37)
 
 
@@ -40,6 +45,20 @@ def _flat(s):
     cols = ("coflow", "cid", "i", "j", "core", "size", "t_establish",
             "t_start", "t_complete")
     return {c: np.array([getattr(f, c) for f in s.flows]) for c in cols}
+
+
+def assert_same_schedule(got: "port.Schedule", want: "ref.Schedule",
+                         msg: str = "") -> None:
+    """Every row and CCT of a port schedule equals the reference's."""
+    w = _flat(want)
+    for col, t in (("coflow", got.pos), ("cid", got.cid), ("i", got.fi),
+                   ("j", got.fj), ("core", got.core), ("size", got.size),
+                   ("t_establish", got.t_establish), ("t_start", got.t_start),
+                   ("t_complete", got.t_complete)):
+        np.testing.assert_array_equal(t.numpy(), w[col],
+                                      err_msg=f"{msg}: {col}")
+    np.testing.assert_array_equal(got.pi.numpy(), want.pi, err_msg=msg)
+    np.testing.assert_array_equal(got.ccts.numpy(), want.ccts, err_msg=msg)
 
 
 def to_reference(s: "port.Schedule", inst: "ref.Instance") -> "ref.Schedule":
@@ -83,16 +102,7 @@ def test_run_fast_and_metrics_match_reference_pallas_backend(idx):
         want = ref.run_fast(inst, "ours", scheduling=scheduling,
                             backend="pallas")
         got = port.run_fast(p, scheduling=scheduling)
-        w = _flat(want)
-        for col, t in (("coflow", got.pos), ("cid", got.cid), ("i", got.fi),
-                       ("j", got.fj), ("core", got.core), ("size", got.size),
-                       ("t_establish", got.t_establish),
-                       ("t_start", got.t_start),
-                       ("t_complete", got.t_complete)):
-            np.testing.assert_array_equal(t.numpy(), w[col],
-                                          err_msg=f"{scheduling}: {col}")
-        np.testing.assert_array_equal(got.pi.numpy(), want.pi)
-        np.testing.assert_array_equal(got.ccts.numpy(), want.ccts)
+        assert_same_schedule(got, want, scheduling)
         ccts, n_flows = port.run_fast_metrics(p, scheduling=scheduling)
         assert n_flows == len(want.flows)
         np.testing.assert_array_equal(ccts.numpy(), want.ccts)
@@ -164,30 +174,152 @@ def test_validate_raises_on_lost_demand_and_wrong_cct():
         port.validate(dataclasses.replace(s, ccts=ccts))
 
 
-@pytest.mark.parametrize("algorithm", ["rho-assign", "rand-assign",
-                                       "sunflow-core", "rand-sunflow"])
-def test_unported_algorithms_name_their_roadmap_entry(algorithm):
-    p = to_port(INSTANCES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        port.run_fast(p, algorithm)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        port.run_fast_metrics(p, algorithm)
-
-
 def test_unported_options_raise_and_unknown_inputs_are_rejected():
+    """What stays unported names its ROADMAP entry; bad inputs raise
+    ``ValueError`` as in the reference."""
     p = to_port(INSTANCES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        port.run_fast(p, scheduling="sunflow")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        port.run_fast(p, delta_k=np.full(p.K, 2.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        port.run_fast(p, locality=0.5)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        port.run_batch([p], check="oracle")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        port.run_fast_metrics(p, releases=np.zeros(p.M))
+        port.run_batch([p], workers=2)
     with pytest.raises(ValueError, match="unknown algorithm"):
         port.run_fast(p, "nope")
     with pytest.raises(ValueError, match="unknown scheduling"):
         port.run_fast(p, scheduling="nope")
+    with pytest.raises(ValueError, match="unknown backend"):
+        port.run_fast(p, backend="pallas")
+    with pytest.raises(ValueError, match="delta_k must have shape"):
+        port.run_fast(p, delta_k=np.ones(p.K + 1))
+    with pytest.raises(ValueError, match="drifted delta must be >= 0"):
+        port.run_fast(p, delta_k=np.full(p.K, -1.0))
+    with pytest.raises(ValueError, match="locality"):
+        port.run_fast(p, locality=-1.0, backend="numpy")
+
+
+@pytest.mark.parametrize("idx", range(len(INSTANCES)), ids=IDS)
+def test_run_fast_numpy_backend_matches_reference(idx):
+    """All five algorithms x their policies on the fp64 host backend."""
+    inst = INSTANCES[idx]
+    p = to_port(inst)
+    for alg, sched in POINTS:
+        kw = dict(seed=idx, scheduling=sched, backend="numpy")
+        want = ref.run_fast(inst, alg, **kw)
+        got = port.run_fast(p, alg, **kw)
+        assert_same_schedule(got, want, f"{alg} {sched}")
+        ccts, n_flows = port.run_fast_metrics(p, alg, **kw)
+        np.testing.assert_array_equal(ccts.numpy(), want.ccts)
+        assert n_flows == len(want.flows)
+        np.testing.assert_allclose(port.weighted_cct(got),
+                                   ref.weighted_cct(want), rtol=1e-12)
+        port.validate(got)
+
+
+@pytest.mark.parametrize("idx", [0, 3, len(INSTANCES) - 1])
+def test_run_fast_kernel_backend_matches_reference_pallas(idx):
+    """Every algorithm under ``backend="kernel"``: the tau-aware ones through
+    the kernel's plain version (the reference's Pallas kernel in interpret
+    mode), the others on the host backend, as in the reference."""
+    inst = INSTANCES[idx]
+    p = to_port(inst)
+    for alg, sched in POINTS:
+        want = ref.run_fast(inst, alg, seed=idx, scheduling=sched,
+                            backend="pallas")
+        got = port.run_fast(p, alg, seed=idx, scheduling=sched)
+        assert_same_schedule(got, want, f"{alg} {sched}")
+
+
+@pytest.mark.parametrize("idx", range(len(INSTANCES)), ids=IDS)
+def test_drift_and_locality_match_reference(idx):
+    """``delta_k`` (drifted, and all-nominal, which must normalize to the
+    undrifted floats) and ``locality > 0`` on every point of the grid."""
+    inst = INSTANCES[idx]
+    p = to_port(inst)
+    drifted = np.full(inst.K, inst.delta)
+    drifted[0] = inst.delta * 2 + 1.5
+    for alg, sched in POINTS:
+        for kw in (dict(delta_k=drifted), dict(delta_k=np.full(inst.K,
+                                                               inst.delta)),
+                   dict(locality=0.75)):
+            want = ref.run_fast(inst, alg, seed=idx, scheduling=sched, **kw)
+            got = port.run_fast(p, alg, seed=idx, scheduling=sched, **kw)
+            assert_same_schedule(got, want, f"{alg} {sched} {kw}")
+            dk = kw.get("delta_k")
+            port.validate(got, flow_delta=None if dk is None
+                          else dk[got.core.numpy()])
+    assert port_engine._normalize_delta_k(p, np.full(p.K, p.delta)) is None
+    plain = port.run_fast(p, backend="numpy")
+    nominal = port.run_fast(p, backend="numpy",
+                            delta_k=torch.full((inst.K,), inst.delta,
+                                               dtype=torch.float64))
+    assert torch.equal(plain.t_complete, nominal.t_complete)
+
+
+@pytest.mark.parametrize("idx", range(len(INSTANCES)), ids=IDS)
+def test_release_drift_and_sunflow_loops_match_reference(idx):
+    """The host loops' online and drifted arguments, fed the reference's
+    own flow table: ``t0``, ``release``, per-flow delays, and
+    ``_sunflow_times`` offline and online."""
+    inst = INSTANCES[idx]
+    table = ref_engine.build_flow_table(inst, ref.order_coflows(inst), "ours")
+    K, N = inst.K, inst.N
+    rin = table.core * N + table.fi
+    rout = table.core * N + table.fj
+    srv = table.size / inst.rates[table.core]
+    rng = np.random.default_rng(idx)
+    rel = rng.uniform(0, 50, table.n_flows).round(1)
+    d_f = rng.uniform(0, 10, table.n_flows)
+    for guard in (False, True):
+        for kw in (dict(t0=7.5), dict(release=rel), dict(release=rel, t0=3.0)):
+            for dl in (inst.delta, d_f):
+                np.testing.assert_array_equal(
+                    port_engine._event_loop(rin, rout, srv, table.core, dl,
+                                            K * N, N, guard=guard, **kw),
+                    ref_engine._event_loop(rin, rout, srv, table.core, dl,
+                                           K * N, N, guard=guard, **kw))
+    for dl in (inst.delta, d_f):
+        np.testing.assert_array_equal(
+            port_engine._reserving_times(rin, rout, srv, dl, K * N,
+                                         release=rel),
+            ref_engine._reserving_times(rin, rout, srv, dl, K * N,
+                                        release=rel))
+    prio = rng.permutation(inst.M)[table.pos]
+    rel_c = rng.uniform(0, 50, inst.M)[table.pos]
+    dk = rng.uniform(0, 10, K)
+    for kw in (dict(), dict(delta_k=dk), dict(release=rel_c, prio=prio),
+               dict(release=rel_c, prio=prio, delta_k=dk)):
+        np.testing.assert_array_equal(
+            port_engine._sunflow_times(table.pos, table.core, table.fi,
+                                       table.fj, table.size, rin, rout, srv,
+                                       inst.delta, N, K, **kw),
+            ref_engine._sunflow_times(table, rin, rout, srv, inst.delta, N, K,
+                                      **kw))
+
+
+def test_backend_choice_is_the_references_three_way_choice(monkeypatch):
+    """The kernel serves tau-aware runs under ``backend="kernel"`` without
+    drift or locality, and nothing else; no fallback in either direction."""
+    p = to_port(INSTANCES[-1])
+    calls = []
+    real = port_engine.coflow_assign
+    monkeypatch.setattr(port_engine, "coflow_assign",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    drifted = np.full(p.K, p.delta)
+    drifted[1] += 4.0
+    for alg, kw, n in (
+            ("ours", {}, 1), ("sunflow-core", {}, 1),
+            ("ours", dict(delta_k=np.full(p.K, p.delta)), 1),
+            ("ours", dict(backend="numpy"), 0),
+            ("ours", dict(locality=0.5), 0),
+            ("ours", dict(delta_k=drifted), 0),
+            ("sunflow-core", dict(delta_k=drifted), 0),
+            ("rho-assign", {}, 0), ("rand-assign", {}, 0),
+            ("rand-sunflow", {}, 0)):
+        calls.clear()
+        port.run_fast(p, alg, **kw)
+        assert len(calls) == n, (alg, kw)
+    calls.clear()
+    port.run_fast_online(port.OnlineInstance(inst=p, releases=np.zeros(p.M)))
+    assert len(calls) == 1
 
 
 def test_flow_table_core_choices_are_kernel_choices():

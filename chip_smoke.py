@@ -24,7 +24,9 @@ non-zero without printing a result):
      pi-ordered flows of the 526-coflow trace instance; the warp kernel on
      those 4,096 flows and on hazard streams at K=9 and 32;
   4. the main path: ``sample_instance(N=150, M=200)`` of the FB-2010-style
-     trace through ``run_fast`` and ``validate``, with weighted and tail CCT,
+     trace through ``run_fast(backend="kernel")`` (the kernel is opt-in: the
+     default backend is the fp64 host one, as in the reference) and
+     ``validate``, with weighted and tail CCT,
      each stage's time, each assignment kernel's launches in that run (one
      of the chain kernel, none of the warp kernel), a check of every CCT
      against the Lemma 1 lower bound, a small instance whose GPU run must
@@ -59,8 +61,8 @@ non-zero without printing a result):
      device time by kind of kernel;
   9. the online path at full width: ``sample_online_instance`` of the same
      trace (N=150, M=200: phase 4's coflows, 191,551 flows, released over
-     phase 4's makespan) through ``run_fast_online`` (one launch of the
-     chain kernel on the arrival-ordered flows, none of the warp kernel) and
+     phase 4's makespan) through ``run_fast_online(backend="kernel")`` (one
+     launch of the chain kernel on the arrival-ordered flows, none of the warp kernel) and
      ``validate(releases=)``, every CCT against release + delta + rho/R,
      weighted and tail CCT and the price of arrival (online over offline
      weighted CCT), each stage's time, the chain kernel against the warp
@@ -74,7 +76,31 @@ non-zero without printing a result):
      every point and the kernel for the tau-aware ones, weighted CCT
      normalized to ``ours`` and each point's wall time; then, on the small
      N=24, M=60 instance, every grid point on the card against the same
-     point on the CPU, bit for bit in choices, t_establish and CCTs.
+     point on the CPU, bit for bit in choices, t_establish and CCTs;
+ 11. the streaming service at full width: ``FabricManager`` on the card
+     over phase 9's online instance (200 coflows, 191,551 flows):
+     ``arrival_stream`` -> ``submit``, 16 evenly spaced ``tick``s and
+     ``flush`` (each tick's report and wall time printed, and the host
+     seconds of each traced span); every flow committed, the per-coflow
+     CCTs equal to the fp64 replay in admission order bit for bit (phase
+     9's fp64 ``run_fast_metrics`` when the releases are untied), the
+     program of record validated on the card, no kernel launched (the
+     streaming plane assigns on the fp64 host backend, as the reference's);
+     ``summary()``; then the one-shot plane on phase 4's instance with
+     ``backend="kernel"``, twice: one chain-kernel launch on the miss, none
+     on the hit, byte-identical programs equal to phase 4's schedule;
+ 12. the fault plane: phase 10's online M=48 instance (25,217 flows; the
+     stream is cut from phase 11's M=200, where phases 11-12 can overrun
+     their 150 s budget ``STREAM_BUDGET_S``; PERF.md) served the same way
+     with a ``FaultInjector`` (core 2 down at 0.25 of the span and up at
+     0.5, a flap of core 1's port 0 over [0.6, 0.62], core 0's delay
+     drifting to 12 at 0.7) and one ``report_fault`` discovered late (core
+     2 down again a twentieth of the span before the middle tick); the
+     program of record (aborted circuits dropped) validated, every coflow's
+     bytes delivered exactly once, every CCT finite; then
+     examples/serve_fabric.py's stream (N=16, M=80) with the same faults
+     through ``FabricState`` on the card and on the CPU, every
+     ``TickCommit`` equal. A run over the budget says so.
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -122,6 +148,9 @@ N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
 #: flows) took 312.7 s on the card's host, over the phase's 150 s cap, the
 #: priority-guard points most of it (PERF.md, PR 15).
 M_GRID = 48
+#: Phases 11-12: service ticks, evenly spaced over the arrival span, and
+#: the budget of the two phases together on the card's host.
+STREAM_TICKS, STREAM_BUDGET_S = 16, 150.0
 #: tests/test_kernels_assign.py CASES: (F, K, N, delta).
 CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
 
@@ -355,7 +384,7 @@ def main() -> int:
         f"sampled and moved to the card in {t_inst:.2f} s")
     ca.launches = 0
     ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
-    sched, t_run = sync_time(lambda: run_fast(inst))
+    sched, t_run = sync_time(lambda: run_fast(inst, backend="kernel"))
     main_launches = dict(ca.launches_by_kernel)
     if main_launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
         raise AssertionError(f"run_fast must launch the chain kernel once and "
@@ -395,7 +424,8 @@ def main() -> int:
     small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
                                 delta=DELTA, seed=3, device=d)
              for d in ("cuda", "cpu")}
-    s_gpu, s_cpu = run_fast(small["cuda"]), run_fast(small["cpu"])
+    s_gpu, s_cpu = (run_fast(small[d], backend="kernel")
+                    for d in ("cuda", "cpu"))
     validate(s_gpu)
     same = torch.equal(s_gpu.core.cpu(), s_cpu.core) and torch.equal(
         s_gpu.t_establish.cpu(), s_cpu.t_establish) and torch.equal(
@@ -417,7 +447,7 @@ def main() -> int:
 
     # ---- 5. the whole trace ---------------------------------------------
     table526, t_table526 = sync_time(lambda: build_flow_table(
-        inst526, order_coflows(inst526)))
+        inst526, order_coflows(inst526), backend="kernel"))
     if not bool(((table526.core >= 0) & (table526.core < inst526.K)).all()):
         raise AssertionError("a choice is outside [0, K)")
     args526 = (fi526.int(), fj526.int(), sz526.float(), rates32)
@@ -475,9 +505,12 @@ def main() -> int:
 
     fa_rows = serve_phases(torch, dev, built, sync_time, event_ms)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
-    online_launches = online_phases(torch, dev, sync_time, kernel_vs_plain,
-                                    trace, inst, sched)
+    online_launches, oinst, ccts64, ogrid = online_phases(
+        torch, dev, sync_time, kernel_vs_plain, trace, inst, sched)
     log(f"[10] phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+    stream_launches = stream_phases(torch, dev, sync_time, oinst, ccts64,
+                                    ogrid, sched)
+    log(f"[12] phases 1-12 took {time.perf_counter() - t_start:.1f} s")
 
     assign_row = {"route": "cuda",
                   "replaces": "src/repro/kernels/coflow_assign.py:38",
@@ -488,11 +521,12 @@ def main() -> int:
         {"name": "coflow_assign",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
          "launches": main_launches["chain_sm90"]
-         + online_launches["chain_sm90"],
+         + online_launches["chain_sm90"] + stream_launches["chain_sm90"],
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
         {"name": "coflow_assign_warp",
          "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
-         "launches": main_launches["warp"] + online_launches["warp"],
+         "launches": main_launches["warp"] + online_launches["warp"]
+         + stream_launches["warp"],
          "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
         *fa_rows]}))
     log(smi)
@@ -503,13 +537,16 @@ def main() -> int:
 
 def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
     """Phases 9-10: the online path at full width and the ablation grid.
-    Returns phase 9's assignment-kernel launches by kernel."""
+    Returns phase 9's assignment-kernel launches by kernel, its online
+    instance, the fp64 backend's online CCTs on it, and phase 10's online
+    instance."""
     from repro_torch.core import (ALGORITHMS, BACKENDS, assign_fast,
                                   extract_flows, online_orders,
                                   order_coflows, run_batch, run_fast,
                                   run_fast_metrics, run_fast_online,
                                   sample_instance, sample_online_instance,
-                                  synth_fb_trace, tail_cct, validate)
+                                  synth_fb_trace, tail_cct, validate,
+                                  weighted_sum)
     from repro_torch.core.coflow import col_loads, row_loads
     from repro_torch.core.engine import (FlowTable, _ccts_from_times,
                                          _times_for_table)
@@ -529,7 +566,8 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
         f"stamps; sampled and moved to the card in {t_inst:.2f} s")
     ca.launches = 0
     ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
-    osched, t_run = sync_time(lambda: run_fast_online(oinst))
+    osched, t_run = sync_time(lambda: run_fast_online(oinst,
+                                                      backend="kernel"))
     launches = dict(ca.launches_by_kernel)
     if launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
         raise AssertionError(f"run_fast_online must launch the chain kernel "
@@ -608,11 +646,13 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
     log(f"[9] the same offline (phase 4's pi-ordered flows): "
         f"{int(off_same.sum())} of {F} agree "
         f"({float(off_same.float().mean()):.4%})")
+    fp64_ccts = {}
     for mode, w32, releases in (("online", wcct, rel),
                                  ("offline", sched.total_weighted_cct, None)):
         (ccts64, _), t_run64 = sync_time(lambda: run_fast_metrics(
             inst, releases=releases, backend="numpy"))
-        w64 = float((inst.weights * ccts64).sum())
+        fp64_ccts[mode] = ccts64
+        w64 = weighted_sum(inst.weights, ccts64)
         log(f"[9] weighted CCT {mode} with the fp64 backend's choices "
             f"{w64!r} ({t_run64:.3f} s); drift of the kernel's "
             f"{abs(w32 - w64) / w64:.4%} (the reference's contract: < 2%)")
@@ -663,7 +703,7 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
     small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
                                 delta=DELTA, seed=3, device=d)
              for d in (dev, "cpu")}
-    span_s = float(run_fast(small["cpu"]).ccts.max())
+    span_s = float(run_fast(small["cpu"], backend="kernel").ccts.max())
     osmall = {d: sample_online_instance(small_trace, N=24, M=60, rates=RATES,
                                         delta=DELTA, span=span_s, seed=3,
                                         device=d)
@@ -693,7 +733,304 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
         f"{n_points} grid points (5 algorithms x their policies x "
         f"{len(BACKENDS)} backends x offline/online) equal on GPU and CPU in "
         f"choices, t_establish and CCTs, and pass validate")
-    return launches
+    return launches, oinst, fp64_ccts["online"], ogrid
+
+
+def fault_events(span: float) -> list:
+    """Phase 12's scripted churn over a stream of span ``span``: core 2 down
+    and back up, a port flap on core 1, core 0's delay drifting to 12."""
+    from repro_torch.core import CoreDown, CoreUp, DeltaDrift, PortFlap
+
+    return [CoreDown(t=0.25 * span, core=2), CoreUp(t=0.5 * span, core=2),
+            PortFlap(t=0.6 * span, t_end=0.62 * span, core=1, port=0),
+            DeltaDrift(t=0.7 * span, core=0, delta=12.0)]
+
+
+def late_fault(span: float, T: float):
+    """The fault reported after phase 12's middle tick, discovered late:
+    core 2, back since half the span, failed again a twentieth of the span
+    before that tick, so circuits committed on it since are retro-aborted."""
+    from repro_torch.core import CoreDown
+
+    return CoreDown(t=T - 0.05 * span, core=2)
+
+
+def tick_batches(oinst, n_ticks: int):
+    """The tick partition of ``examples/serve_fabric.py``: ``n_ticks``
+    evenly spaced ticks over the arrival span, each with the
+    ``arrival_stream`` pairs ``(coflow, release)`` released in
+    ``(previous tick, T]``. Yields ``(x, T, batch, span)``."""
+    from repro_torch.core import arrival_stream
+
+    arrivals = list(arrival_stream(oinst))
+    span = float(oinst.releases.max())
+    nxt = 0
+    for x, T in enumerate(np.linspace(span / n_ticks, span, n_ticks)):
+        end = nxt
+        while end < len(arrivals) and arrivals[end][1] <= T:
+            end += 1
+        yield x, float(T), arrivals[nxt:end], span
+        nxt = end
+
+
+def serve_stream(mgr, oinst, n_ticks: int, late=None, on_tick=None) -> list:
+    """The service loop: every coflow of a tick's batch ``submit``ted, then
+    the ``tick``, over :func:`tick_batches`, then ``flush``. ``late(span,
+    T)`` gives a fault reported after the middle tick. Returns the tick
+    reports (the flush's last)."""
+    reports = []
+    for x, T, batch, span in tick_batches(oinst, n_ticks):
+        for arrival in batch:
+            mgr.submit(*arrival)
+        reports.append(mgr.tick(T))
+        if on_tick is not None:
+            on_tick(reports[-1])
+        if late is not None and x == n_ticks // 2:
+            mgr.report_fault(late(span, T))
+    reports.append(mgr.flush())
+    if on_tick is not None:
+        on_tick(reports[-1])
+    return reports
+
+
+def drive_state(st, oinst, n_ticks: int, late=None) -> list:
+    """``FabricState`` alone over :func:`tick_batches`, the late fault
+    applied after the middle tick. Returns every ``TickCommit``, the
+    finalize tick's last."""
+    commits = []
+    for x, T, batch, span in tick_batches(oinst, n_ticks):
+        commits.append(st.step([c for c, _ in batch],
+                               np.array([r for _, r in batch], np.float64),
+                               T))
+        if late is not None and x == n_ticks // 2:
+            st.apply_fault(late(span, T))
+    commits.append(st.finalize())
+    return commits
+
+
+def span_totals(records: list) -> dict:
+    """Host seconds per span name over a trace (each span ends in a device
+    synchronise)."""
+    out: dict = {}
+    for r in records:
+        if r["kind"] == "span":
+            out[r["name"]] = out.get(r["name"], 0.0) + r["dur"]
+    return out
+
+
+def stream_phases(torch, dev, sync_time, oinst, ccts64, foinst, sched):
+    """Phases 11-12: the streaming fabric manager at full width on phase 9's
+    online instance ``oinst``, the one-shot plane on phase 4's instance,
+    held to phase 4's ``run_fast(backend="kernel")`` schedule ``sched``, and
+    the fault plane on ``foinst`` (phase 10's online instance). ``ccts64``
+    are phase 9's fp64 online CCTs by coflow id. Returns phase 11's
+    assignment-kernel launches by kernel."""
+    from repro_torch.core import FabricState, FaultInjector
+    from repro_torch.core import run_fast_metrics, sample_online_instance
+    from repro_torch.core import run_fast_online, synth_fb_trace, weighted_sum
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.obs import Tracer
+    from repro_torch.service import FabricConfig, FabricManager
+    from repro_torch.service import compile_schedule
+
+    # ---- 11. the streaming service at full width -------------------------
+    t11 = time.perf_counter()
+    inst = oinst.inst
+    M = inst.M
+    rel = oinst.releases.cpu().numpy()
+    span = float(rel.max())
+    F = int((inst.demand > 0).sum())
+    tracer = Tracer()
+    cfg = dict(rates=RATES, delta=DELTA, N=N_PORTS, max_queue_depth=M)
+    mgr = FabricManager(FabricConfig(**cfg), tracer=tracer, device=dev)
+    log(f"[11] streaming service: phase 9's {M} coflows ({F} flows, "
+        f"released over [0, {span!r}]), {STREAM_TICKS} ticks, then flush")
+
+    def show(phase):
+        def one(rep):
+            log(f"[{phase}]   tick t={rep.t_now!r}: admitted {rep.admitted}, "
+                f"committed {rep.committed_flows}, finalized "
+                f"{rep.finalized}, backlog {rep.pending_flows} flows, "
+                f"components touched {rep.components_touched} of "
+                f"{rep.components_total}, aborted {rep.aborted}, wall "
+                f"{rep.wall_s:.3f} s")
+        return one
+
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    reports = serve_stream(mgr, oinst, STREAM_TICKS, on_tick=show(11))
+    stream_launches = dict(ca.launches_by_kernel)
+    summ = mgr.summary()
+    if (summ["flows_committed"], summ["pending_flows"],
+            summ["coflows_finalized"]) != (F, 0, M):
+        raise AssertionError(f"the stream must commit all {F} flows of "
+                             f"{M} coflows; summary {summ}")
+    if stream_launches != {"chain_sm90": 0, "warp": 0}:
+        raise AssertionError(f"the streaming plane assigns on the fp64 host "
+                             f"backend and launches nothing; counted "
+                             f"{stream_launches}")
+    # the replay: coflows in admission order (= release order)
+    order = np.argsort(rel, kind="stable")
+    order_t = torch.from_numpy(order).to(dev)
+    got = mgr.ccts()
+    if np.unique(rel).size == M:
+        want = ccts64[order_t]
+        how = ("phase 9's fp64 run_fast_metrics(releases=), in admission "
+               "order (the releases are untied)")
+    else:
+        replay = dataclasses.replace(inst, demand=inst.demand[order_t],
+                                     weights=inst.weights[order_t],
+                                     cids=inst.cids[order_t])
+        want, _ = run_fast_metrics(replay, releases=rel[order],
+                                   backend="numpy")
+        how = "an fp64 run_fast_online replay in admission order"
+    if not torch.equal(got, want):
+        bad = int(torch.nonzero(got != want)[0, 0])
+        raise AssertionError(f"stream CCT of admission {bad} "
+                             f"{float(got[bad])!r} != replay "
+                             f"{float(want[bad])!r}")
+    program = mgr.program()
+    _, t_val = sync_time(program.validate)
+    if program.n_segments != F or program.device.type != torch.device(
+            dev).type:
+        raise AssertionError("the program of record must hold every flow, "
+                             "on the card")
+    walls = [r.wall_s for r in reports]
+    log(f"[11] {summ['ticks']} ticks ({len(reports) - 1} + flush) committed "
+        f"all {F} flows; CCTs equal {how}, bit for bit; program().validate() "
+        f"passed on the card in {t_val:.3f} s; assignment kernel launches "
+        f"{stream_launches}")
+    log(f"[11] summary: ticks {summ['ticks']}, rows reused "
+        f"{summ['tent_reused']} / recomputed {summ['tent_recomputed']} "
+        f"(reuse {summ['tent_reuse_fraction']:.4%}), components "
+        f"{summ['components_touched']} touched of "
+        f"{summ['components_total']}, backlog peak "
+        f"{max(r.pending_flows for r in reports)} flows, decision latency "
+        f"p50 {summ['decision_latency_p50_s']:.3f} s p99 "
+        f"{summ['decision_latency_p99_s']:.3f} s, {summ['coflows_per_s']:.2f} "
+        f"coflows/s; tick wall total {sum(walls):.3f} s, max "
+        f"{max(walls):.3f} s")
+    spans = span_totals(tracer.records)
+    log("[11] host seconds by span (each ends in a synchronise): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(spans.items(),
+                                           key=lambda kv: -kv[1])))
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    (p1, hit1), t_miss = sync_time(
+        lambda: mgr.schedule_instance(sched.inst, backend="kernel"))
+    after_miss = dict(ca.launches_by_kernel)
+    (p2, hit2), t_hit = sync_time(
+        lambda: mgr.schedule_instance(sched.inst, backend="kernel"))
+    oneshot_launches = dict(ca.launches_by_kernel)
+    if (hit1, hit2) != (False, True) or after_miss != {
+            "chain_sm90": 1, "warp": 0} or oneshot_launches != after_miss:
+        raise AssertionError(f"the one-shot plane must launch the chain "
+                             f"kernel once on the miss and not on the hit; "
+                             f"hits {(hit1, hit2)}, launches {after_miss} "
+                             f"then {oneshot_launches}")
+    fields = ("core", "ingress", "egress", "cid", "size", "t_establish",
+              "t_complete")
+    if not all(torch.equal(getattr(p1, f), getattr(p2, f)) for f in fields):
+        raise AssertionError("the cache hit's program differs from the miss's")
+    # segments sort by (core, t_establish, ingress), a unique key: equal
+    # arrays mean the same (coflow, ingress, egress) -> core and times
+    want1 = compile_schedule(sched)
+    if not all(torch.equal(getattr(p1, f), getattr(want1, f))
+               for f in fields):
+        raise AssertionError("the one-shot plane's program differs from "
+                             "phase 4's run_fast(backend=\"kernel\")")
+    _, t_val1 = sync_time(p1.validate)
+    t11 = time.perf_counter() - t11
+    log(f"[11] one-shot plane, backend=\"kernel\", phase 4's instance: miss "
+        f"{t_miss:.3f} s (chain kernel launches {after_miss}), hit "
+        f"{t_hit:.4f} s (none more), byte-identical {p1.n_segments}-segment "
+        f"programs equal to phase 4's schedule, validated in {t_val1:.3f} s; "
+        f"phase 11 took {t11:.1f} s")
+
+    # ---- 12. the fault plane -------------------------------------------
+    t12 = time.perf_counter()
+    finst = foinst.inst
+    fM, fF = finst.M, int((finst.demand > 0).sum())
+    frel = foinst.releases.cpu().numpy()
+    fspan = float(frel.max())
+    log(f"[12] the faulted stream is phase 10's M={fM} online instance "
+        f"({fF} flows, released over [0, {fspan!r}]), cut from phase 11's "
+        f"M={M}, where phases 11-12 can overrun their "
+        f"{STREAM_BUDGET_S:.0f} s budget (PERF.md section 5)")
+    mgr2 = FabricManager(FabricConfig(
+        **{**cfg, "max_queue_depth": fM},
+        faults=FaultInjector(fault_events(fspan))), device=dev)
+    reports2 = serve_stream(mgr2, foinst, STREAM_TICKS, late=late_fault,
+                            on_tick=show(12))
+    summ2 = mgr2.summary()
+    if summ2["faults_applied"] != 5 or summ2["pending_flows"] \
+            or summ2["coflows_finalized"] != fM:
+        raise AssertionError(f"the faulted stream must apply 5 faults and "
+                             f"finalize all {fM} coflows; summary {summ2}")
+    program2 = mgr2.program()
+    _, t_val2 = sync_time(program2.validate)
+    forder = torch.from_numpy(np.argsort(frel, kind="stable")).to(dev)
+    sent = torch.zeros_like(finst.demand)
+    sent.index_put_((program2.cid, program2.ingress, program2.egress),
+                    program2.size, accumulate=True)
+    if not torch.equal(sent, finst.demand[forder]):
+        raise AssertionError("the faulted program of record does not deliver "
+                             "each coflow's demand exactly once")
+    ccts2 = mgr2.ccts()
+    if not bool(torch.isfinite(ccts2).all()) or not bool((ccts2 > 0).all()):
+        raise AssertionError("a faulted stream's CCT is not finite")
+    for fr in mgr2.fault_reports:
+        log(f"[12]   {fr.event}: aborted {fr.aborted}, requeued "
+            f"{fr.requeued}, reassigned {fr.reassigned_pending}, "
+            f"unfinalized {len(fr.unfinalized)}, teardowns "
+            f"{len(fr.teardowns)}")
+    log(f"[12] faulted stream ({fM} coflows, {fF} flows, 4 injected faults "
+        f"+ 1 reported late): {program2.n_segments} segments of record "
+        f"(aborted ones dropped) validated on the card in {t_val2:.3f} s, "
+        f"every coflow's bytes delivered exactly once, every CCT finite; "
+        f"circuits aborted {summ2['circuits_aborted']}, flows requeued "
+        f"{summ2['flows_requeued']}, rows invalidated "
+        f"{summ2['tent_invalidated']}; weighted CCT (summed in admission "
+        f"order) {weighted_sum(mgr2.state.weights(), mgr2.ccts())!r}; "
+        f"tick wall total {sum(r.wall_s for r in reports2):.3f} s")
+    trace = synth_fb_trace(526, seed=2026)
+    off = sample_online_instance(trace, N=16, M=80, rates=RATES, delta=DELTA,
+                                 span=0.0, seed=7, device="cpu")
+    s_span = float(run_fast_online(off).ccts.max())
+    commits = {}
+    for d in (dev, "cpu"):
+        so = sample_online_instance(trace, N=16, M=80, rates=RATES,
+                                    delta=DELTA, span=s_span, seed=7,
+                                    device=d)
+        st = FabricState(rates=RATES, delta=DELTA, N=16, device=d,
+                         faults=FaultInjector(fault_events(s_span)))
+        commits[d] = (drive_state(st, so, 12, late=late_fault), st)
+    (gc, gst), (cc, cst) = commits[dev], commits["cpu"]
+    for x, (g, c) in enumerate(zip(gc, cc)):
+        same = all(torch.equal(getattr(g, f).cpu(), getattr(c, f))
+                   for f in ("gid", "cid", "fi", "fj", "core", "size",
+                             "t_establish", "t_complete"))
+        same &= (g.finalized, g.n_pending, g.unfinalized) == (
+            c.finalized, c.n_pending, c.unfinalized)
+        same &= (g.delta_f is None) == (c.delta_f is None) and (
+            g.delta_f is None or torch.equal(g.delta_f.cpu(), c.delta_f))
+        same &= [a.aborted for a in g.faults] == [a.aborted for a in c.faults]
+        if not same:
+            raise AssertionError(f"small faulted stream: tick {x} commits "
+                                 f"differ between the card and the CPU")
+    if not torch.equal(gst.ccts().cpu(), cst.ccts()) or \
+            gst.aborted_keys() != cst.aborted_keys():
+        raise AssertionError("small faulted stream: CCTs differ")
+    t12 = time.perf_counter() - t12
+    log(f"[12] small faulted stream (N=16, M=80, {sum(c.n_flows for c in gc)} "
+        f"commits over {len(gc)} ticks, {len(gst.fault_log)} faults, "
+        f"{sum(a.n_aborted for a in gst.fault_log)} circuits aborted): every "
+        f"TickCommit equal on the card and the CPU; phase 12 took {t12:.1f} s")
+    log(f"[12] phases 11-12 took {t11 + t12:.1f} s (budget "
+        f"{STREAM_BUDGET_S:.0f} s)")
+    if t11 + t12 > STREAM_BUDGET_S:
+        log(f"[12] over the budget even so: phase 11 alone took {t11:.1f} s")
+    return {k: stream_launches[k] + oneshot_launches[k] for k in ca.KERNELS}
 
 
 def device_time_by_kind(torch, fn):

@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of the multi-core OCS coflow scheduler (``repro``).
 
-The port runs Algorithm 1's offline path on an NVIDIA H100: demand tensors,
-WSPT ordering and flow extraction on the device, the tau-aware cross-core
-assignment as a hand-written CUDA kernel (``kernels/csrc/coflow_assign.cu``),
-the circuit event loop on the host, and the feasibility referee and CCT
-metrics back on the device.
+The port runs Algorithm 1 on an NVIDIA H100, offline, online and as a
+streaming fabric manager (``core``, ``service``, ``obs``): demand tensors,
+WSPT ordering and flow extraction on the device, the cross-core assignment
+on the fp64 host backend or (opt-in) as a hand-written CUDA kernel
+(``kernels/csrc/coflow_assign_sm90.cu``), the circuit event loops on the
+host, and the feasibility referee and CCT metrics back on the device. The
+dense LM serving path (``models``, ``serve``) runs its prefill attention
+through a hand-written flash-attention kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; there
 is no silent fallback (see :func:`resolve_device`). On the CPU every kernel

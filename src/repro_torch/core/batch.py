@@ -23,7 +23,7 @@ import torch
 
 from .coflow import Instance, OnlineInstance
 from .engine import BACKENDS, run_fast, run_fast_metrics, run_fast_online
-from .scheduler import ALGORITHMS, tail_quantile
+from .scheduler import ALGORITHMS, tail_quantile, weighted_sum
 from .simulator import validate
 
 __all__ = ["SweepRow", "ResultTable", "run_batch", "row_from_ccts"]
@@ -92,17 +92,19 @@ def row_from_ccts(idx: int, alg: str, sched: str, seed: int,
                   weights: torch.Tensor, ccts: torch.Tensor, n_flows: int,
                   wall: float) -> SweepRow:
     """``SweepRow`` straight from per-coflow CCTs; an empty instance (M == 0)
-    gives an all-zero row."""
+    gives an all-zero row. Sums and tails are numpy's, on one host copy of
+    the CCTs, so they equal the reference's bit for bit."""
+    ccts_h = ccts.detach().cpu().numpy()
     return SweepRow(
         instance=idx,
         algorithm=alg,
         scheduling=sched,
         seed=seed,
-        weighted_cct=float((weights * ccts).sum()),
-        total_cct=float(ccts.sum()),
-        p95=tail_quantile(ccts, 0.95),
-        p99=tail_quantile(ccts, 0.99),
-        makespan=float(ccts.max()) if ccts.numel() else 0.0,
+        weighted_cct=weighted_sum(weights, ccts_h),
+        total_cct=float(ccts_h.sum()),
+        p95=tail_quantile(ccts_h, 0.95),
+        p99=tail_quantile(ccts_h, 0.99),
+        makespan=float(ccts_h.max()) if ccts_h.size else 0.0,
         n_flows=n_flows,
         wall_s=wall,
     )
@@ -149,7 +151,7 @@ def run_batch(
     check: str = "validate",
     workers: int | None = None,
     releases: Sequence[torch.Tensor | np.ndarray | None] | None = None,
-    backend: str = "kernel",
+    backend: str = "numpy",
     materialize: str = "full",
 ) -> ResultTable:
     """Run a whole sweep grid through the engine; rows in grid order.

@@ -14,6 +14,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -21,9 +22,11 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = [
+    "Coflow",
     "Instance",
     "OnlineInstance",
     "instance_from_arrays",
+    "instance_from_coflows",
     "online_instance_from_arrays",
     "row_loads",
     "col_loads",
@@ -31,6 +34,39 @@ __all__ = [
     "tau",
     "extract_flows",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Coflow:
+    """One coflow: an ``(N, N)`` float64 demand tensor plus a positive weight.
+
+    The unit of the streaming plane (``fabric.FabricState``,
+    ``service.FabricManager``), as in the reference. An array-like demand
+    becomes a float64 tensor (on the CPU for a numpy array; a tensor keeps
+    its device).
+    """
+
+    cid: int
+    demand: torch.Tensor  # (N, N) float64, >= 0
+    weight: float = 1.0
+
+    def __post_init__(self) -> None:
+        d = torch.as_tensor(self.demand, dtype=torch.float64)
+        if d.ndim != 2 or d.shape[0] != d.shape[1]:
+            raise ValueError(f"demand must be square, got {tuple(d.shape)}")
+        if bool((d < 0).any()):
+            raise ValueError("demand entries must be non-negative")
+        if self.weight <= 0:
+            raise ValueError("weight must be positive")
+        object.__setattr__(self, "demand", d)
+
+    @property
+    def n_ports(self) -> int:
+        return int(self.demand.shape[0])
+
+    @property
+    def num_flows(self) -> int:
+        return int((self.demand > 0).sum())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +177,38 @@ def instance_from_arrays(
                     cids=put(cids, torch.int64),
                     rates=put(rates, torch.float64),
                     delta=float(delta))
+
+
+def instance_from_coflows(
+    coflows: Sequence[Coflow],
+    rates: torch.Tensor | np.ndarray,
+    delta: float,
+    *,
+    n_ports: int | None = None,
+    device: str | torch.device | None = None,
+) -> Instance:
+    """Build an :class:`Instance` on ``device`` from a sequence of
+    :class:`Coflow` records (the streaming plane's batches and replays).
+
+    Coflow ``m`` of the sequence is row ``m``: its demand, weight and cid.
+    ``n_ports`` gives N when the sequence is empty.
+    """
+    dev = resolve_device(device)
+    coflows = tuple(coflows)
+    ns = {c.n_ports for c in coflows}
+    if len(ns) > 1:
+        raise ValueError(f"all coflows must share N, got {ns}")
+    N = ns.pop() if ns else int(n_ports or 0)
+    demand = (torch.stack([c.demand.to(dev) for c in coflows]) if coflows
+              else torch.zeros((0, N, N), dtype=torch.float64, device=dev))
+    return Instance(
+        demand=demand,
+        weights=torch.tensor([float(c.weight) for c in coflows],
+                             dtype=torch.float64, device=dev),
+        cids=torch.tensor([int(c.cid) for c in coflows], dtype=torch.int64,
+                          device=dev),
+        rates=torch.as_tensor(rates, dtype=torch.float64).to(dev),
+        delta=float(delta))
 
 
 def online_instance_from_arrays(

@@ -7,9 +7,9 @@ place of pi) is
 
   1. WSPT order pi (online: arrival order) and flow extraction, on the
      device (``ordering``, ``online.online_orders``, ``coflow.extract_flows``);
-  2. cross-core assignment: the tau-aware CUDA kernel
-     (``kernels.ops.coflow_assign``) under ``backend="kernel"``, else the fp64
-     host backend (``assignment``);
+  2. cross-core assignment: the fp64 host backend (``assignment``) under
+     ``backend="numpy"``, the default as in the reference, or the tau-aware
+     CUDA kernel (``kernels.ops.coflow_assign``) under ``backend="kernel"``;
   3. service times on the device, then the circuit event loops on the host:
      the flow table goes to the host once and the establishment times come
      back once;
@@ -50,11 +50,11 @@ __all__ = ["ALGORITHMS", "BACKENDS", "FlowTable", "SCHEDULINGS",
 #: SUNFLOW-CORE baselines.
 SCHEDULINGS = ("work-conserving", "priority-guard", "reserving", "sunflow")
 
-#: Assignment backends. ``kernel`` (the default, the card's main path) runs
-#: the tau-aware policy on the CUDA kernel (fp32 state, the reference's
-#: ``"pallas"``); ``numpy`` runs the fp64 host backend, bit-identical to the
-#: reference's oracles. The rho-only and random policies have no kernel and
-#: always run the host backend.
+#: Assignment backends. ``numpy`` (the default, as in the reference) runs
+#: the fp64 host backend, bit-identical to the reference's oracles;
+#: ``kernel`` (opt-in, the latency path) runs the tau-aware policy on the
+#: CUDA kernel (fp32 state, the reference's ``"pallas"``). The rho-only and
+#: random policies have no kernel and always run the host backend.
 BACKENDS = ("numpy", "kernel")
 
 #: algorithm name -> assignment policy.
@@ -104,7 +104,7 @@ def build_flow_table(
     algorithm: str = "ours",
     *,
     seed: int = 0,
-    backend: str = "kernel",
+    backend: str = "numpy",
     delta_k: torch.Tensor | np.ndarray | None = None,
     locality: float = 0.0,
 ) -> FlowTable:
@@ -190,6 +190,8 @@ def _event_loop(
     t0: float = 0.0,
     guard: bool = False,
     release: np.ndarray | None = None,
+    free_in0: np.ndarray | None = None,
+    free_out0: np.ndarray | None = None,
 ) -> np.ndarray:
     """Merged event loop over all cores; flows in priority order.
 
@@ -210,17 +212,32 @@ def _event_loop(
     release times, so the exact float comparisons below are the convention,
     not a hazard. ``t0`` is the time the resources free (the sunflow
     barrier). ``delta`` is a scalar or a per-flow array (drifted cores).
+
+    ``free_in0``/``free_out0`` (per resource, both or neither) seed the port
+    horizons from circuits already committed by earlier service ticks
+    (``fabric.FabricState``): every horizon strictly after ``t0`` goes into
+    the event heap, so the loop wakes when a committed circuit tears down;
+    ``+inf`` horizons (a failed core's resources) are never seeded. With
+    ``None`` this is the from-scratch loop.
     """
     F = rin.size
     t_est = np.full(F, -1.0)
     if F == 0:
         return t_est
     d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
-    free_in = np.full(n_res, t0)
-    free_out = np.full(n_res, t0)
+    if free_in0 is None:
+        free_in = np.full(n_res, t0)
+        free_out = np.full(n_res, t0)
+    else:
+        free_in = np.asarray(free_in0, dtype=np.float64).copy()
+        free_out = np.asarray(free_out0, dtype=np.float64).copy()
     done = np.zeros(F, dtype=bool)
     scratch = np.empty(n_res, dtype=np.int64)
     events: list[float] = []  # heap of future completion and release times
+    if free_in0 is not None:
+        seed_in = free_in[(free_in > t0) & np.isfinite(free_in)]
+        seed_out = free_out[(free_out > t0) & np.isfinite(free_out)]
+        events = np.unique(np.concatenate([seed_in, seed_out])).tolist()
     remaining = F
     t = t0
     if release is not None:
@@ -309,16 +326,23 @@ def _event_loop(
 
 def _reserving_times(rin: np.ndarray, rout: np.ndarray, srv: np.ndarray,
                      delta: float | np.ndarray, n_res: int,
-                     release: np.ndarray | None = None) -> np.ndarray:
+                     release: np.ndarray | None = None,
+                     avail_in: np.ndarray | None = None,
+                     avail_out: np.ndarray | None = None) -> np.ndarray:
     """Strict in-order reservation (no backfill) over merged resources.
 
     ``release`` (per flow) is the online variant: flows come in commitment
     (arrival) order and each reservation starts no earlier than its
     release. ``delta`` may be a per-flow array (drifted cores).
+
+    ``avail_in``/``avail_out`` (both or neither) carry the reservation
+    horizons across service ticks and are MUTATED in place: a reservation
+    never moves once made, so the arrays are the committed state.
     """
     d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
-    avail_in = np.zeros(n_res)
-    avail_out = np.zeros(n_res)
+    if avail_in is None:
+        avail_in = np.zeros(n_res)
+        avail_out = np.zeros(n_res)
     t_est = np.empty(rin.size)
     for f in range(rin.size):
         i, j = rin[f], rout[f]
@@ -520,7 +544,7 @@ def run_fast(
     *,
     seed: int = 0,
     scheduling: str = "work-conserving",
-    backend: str = "kernel",
+    backend: str = "numpy",
     delta_k: torch.Tensor | np.ndarray | None = None,
     locality: float = 0.0,
 ) -> Schedule:
@@ -556,7 +580,7 @@ def run_fast_metrics(
     *,
     seed: int = 0,
     scheduling: str = "work-conserving",
-    backend: str = "kernel",
+    backend: str = "numpy",
     releases: torch.Tensor | np.ndarray | None = None,
     delta_k: torch.Tensor | np.ndarray | None = None,
     locality: float = 0.0,
@@ -587,7 +611,7 @@ def run_fast_online(
     *,
     seed: int = 0,
     scheduling: str = "work-conserving",
-    backend: str = "kernel",
+    backend: str = "numpy",
     delta_k: torch.Tensor | np.ndarray | None = None,
     locality: float = 0.0,
 ) -> Schedule:

@@ -4,17 +4,22 @@ Port of ``repro.core.scheduler``'s ``Schedule`` and metrics. The reference
 keeps one ``ScheduledFlow`` object per flow; here a schedule is a set of
 ``(F,)`` tensors on the instance's device, in the reference's row order:
 core-major, priority order within each core.
+
+The metrics reduce the ``(M,)`` CCTs on the host with numpy, as the
+reference does (one small copy): ``torch.sum`` and ``torch.quantile`` round
+in another order, and these are the numbers the reference's tools diff.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .coflow import Instance
 
-__all__ = ["ALGORITHMS", "Schedule", "weighted_cct", "tail_quantile",
-           "tail_cct"]
+__all__ = ["ALGORITHMS", "Schedule", "weighted_cct", "weighted_sum",
+           "tail_quantile", "tail_cct"]
 
 #: The paper's algorithm and the four baselines of its ablation.
 ALGORITHMS = ("ours", "rho-assign", "rand-assign", "sunflow-core",
@@ -51,7 +56,20 @@ class Schedule:
 
     @property
     def total_weighted_cct(self) -> float:
-        return float((self.inst.weights * self.ccts).sum())
+        return weighted_sum(self.inst.weights, self.ccts)
+
+
+def _host(x: torch.Tensor | np.ndarray) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def weighted_sum(weights: torch.Tensor | np.ndarray,
+                 ccts: torch.Tensor | np.ndarray) -> float:
+    """``sum_m w_m * CCT_m`` reduced by numpy on host copies, the
+    reference's floats."""
+    return float((_host(weights) * _host(ccts)).sum())
 
 
 def weighted_cct(s: Schedule) -> float:
@@ -59,12 +77,13 @@ def weighted_cct(s: Schedule) -> float:
     return s.total_weighted_cct
 
 
-def tail_quantile(ccts: torch.Tensor, q: float) -> float:
-    """q-quantile (linear interpolation) of a per-coflow CCT tensor; 0.0 for
-    an empty instance."""
-    if ccts.numel() == 0:
+def tail_quantile(ccts: torch.Tensor | np.ndarray, q: float) -> float:
+    """q-quantile (``np.quantile``'s linear interpolation) of per-coflow
+    CCTs; 0.0 for an empty instance."""
+    ccts = _host(ccts)
+    if ccts.size == 0:
         return 0.0
-    return float(torch.quantile(ccts, q))
+    return float(np.quantile(ccts, q))
 
 
 def tail_cct(s: Schedule, q: float) -> float:

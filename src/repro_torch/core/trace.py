@@ -16,15 +16,15 @@ sampled.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 import torch
 
-from .coflow import Instance, OnlineInstance, instance_from_arrays
+from .coflow import Coflow, Instance, OnlineInstance, instance_from_arrays
 
 __all__ = ["TraceCoflow", "synth_fb_trace", "load_fb_trace", "sample_instance",
-           "sample_online_instance"]
+           "sample_online_instance", "arrival_stream"]
 
 N_RACKS = 150
 
@@ -196,3 +196,17 @@ def sample_online_instance(
     rel = (np.zeros(M) if span == 0 or hi == lo
            else (arr - lo) / (hi - lo) * span)
     return OnlineInstance(inst=inst, releases=rel)
+
+
+def arrival_stream(oinst: OnlineInstance) -> Iterator[tuple[Coflow, float]]:
+    """Yield ``(coflow, release)`` in arrival order (stable by release): the
+    event stream a fabric manager's admission queue sees
+    (``service.FabricManager.submit`` takes exactly these pairs). Each
+    coflow's demand is a view of the instance's demand, on its device."""
+    inst = oinst.inst
+    rel = oinst.releases.cpu().numpy()
+    cids = inst.cids.cpu().tolist()
+    weights = inst.weights.cpu().tolist()
+    for m in np.argsort(rel, kind="stable").tolist():
+        yield (Coflow(cid=cids[m], demand=inst.demand[m], weight=weights[m]),
+               float(rel[m]))

@@ -1,9 +1,10 @@
 """The port's sweep API vs the reference's, on the CPU.
 
 ``repro_torch.core.run_batch`` runs the grid serially in grid order; each
-row must equal the reference's row, apart from ``wall_s``: ``n_flows`` and
-``makespan`` exactly, and the weighted sum, the total and the tail
-quantiles, which torch reduces in another order than numpy, to rtol 1e-12.
+row must equal the reference's row exactly, apart from ``wall_s``: the
+weighted sum, the total and the tail quantiles are reduced by numpy on the
+host, as the reference reduces them. ``backend`` defaults to the
+reference's ``"numpy"``.
 """
 import numpy as np
 import pytest
@@ -23,11 +24,8 @@ def assert_same_rows(got, want):
     for g, w in zip(got, want):
         g, w = g.as_dict(), w.as_dict()
         for key in ("instance", "algorithm", "scheduling", "seed", "n_flows",
-                    "makespan"):
+                    "makespan") + SUMS:
             assert g[key] == w[key], (key, g, w)
-        for key in SUMS:
-            np.testing.assert_allclose(g[key], w[key], rtol=1e-12,
-                                       err_msg=key)
         assert g["wall_s"] >= 0.0
 
 
@@ -69,7 +67,7 @@ def test_pair_seeds_and_serial_workers(workers):
                          workers=0, **kw)
     got = port.run_batch([to_port(i) for i in insts],
                          ("rand-assign", "rand-sunflow", "ours"),
-                         workers=workers, backend="numpy", **kw)
+                         workers=workers, **kw)
     assert_same_rows(got.rows, want.rows)
 
 

@@ -167,7 +167,13 @@ def test_instance_rejects_bad_input(bad, match):
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.kernels.ops, repro_torch.core.assignment, "
-            "repro_torch.core.online, repro_torch.core.batch\n"
+            "repro_torch.core.online, repro_torch.core.batch, "
+            "repro_torch.core.arrays, repro_torch.core.fabric, "
+            "repro_torch.core.fault, repro_torch.obs, "
+            "repro_torch.obs.clock, repro_torch.obs.metrics, "
+            "repro_torch.obs.trace, repro_torch.service, "
+            "repro_torch.service.admission, repro_torch.service.cache, "
+            "repro_torch.service.manager, repro_torch.service.program\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -96,8 +96,8 @@ def test_ops_launches_the_kernel_for_cuda_tensors(dev):
 def test_run_fast_on_the_card_equals_the_cpu_run(dev):
     trace = port.synth_fb_trace(200, seed=7)
     runs = {d: port.run_fast(port.sample_instance(
-        trace, N=24, M=60, rates=[10, 20, 30], delta=8.0, seed=3, device=d))
-        for d in (dev, "cpu")}
+        trace, N=24, M=60, rates=[10, 20, 30], delta=8.0, seed=3, device=d),
+        backend="kernel") for d in (dev, "cpu")}
     gpu, cpu = runs[dev], runs["cpu"]
     port.validate(gpu)
     for name in ("core", "t_establish", "t_complete", "ccts"):
@@ -161,7 +161,7 @@ def test_run_fast_goes_through_the_chain_kernel(dev):
     inst = port.sample_instance(trace, N=24, M=60, rates=[10, 20, 30],
                                 delta=8.0, seed=3, device=dev)
     before = dict(ca.launches_by_kernel)
-    port.run_fast(inst)
+    port.run_fast(inst, backend="kernel")
     assert ca.launches_by_kernel == {
         **before, "chain_sm90": before["chain_sm90"] + 1}
 
@@ -175,14 +175,16 @@ def _small_online(device, span=400.0):
 def test_run_fast_online_goes_through_the_chain_kernel(dev):
     oinst = _small_online(dev)
     before = dict(ca.launches_by_kernel)
-    s = port.run_fast_online(oinst)
+    s = port.run_fast_online(oinst, backend="kernel")
     assert ca.launches_by_kernel == {
         **before, "chain_sm90": before["chain_sm90"] + 1}
     port.validate(s, releases=oinst.releases)
 
 
-@pytest.mark.parametrize("kw", [dict(backend="numpy"), dict(locality=0.5),
-                                dict(delta_k=[8.0, 12.0, 8.0])])
+@pytest.mark.parametrize("kw", [dict(backend="numpy"), dict(),
+                                dict(locality=0.5, backend="kernel"),
+                                dict(delta_k=[8.0, 12.0, 8.0],
+                                     backend="kernel")])
 def test_host_backend_runs_launch_no_kernel(dev, kw):
     """``backend="numpy"``, ``locality > 0`` and a drifted ``delta_k`` run
     the fp64 host backend, offline and online, and launch nothing."""
@@ -210,6 +212,123 @@ def test_online_grid_on_the_card_equals_the_cpu_run(dev, backend):
         for name in ("pi", "core", "t_establish", "t_complete", "ccts"):
             assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), \
                 (alg, sched, name)
+
+
+# ---------------------------------------------------------------------------
+# The streaming fabric manager: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _serve_stream(device, N=16, M=80):
+    """examples/serve_fabric.py's stream: N=16, M=80, released over the
+    offline makespan."""
+    trace = port.synth_fb_trace(526, seed=2026)
+    off = port.sample_online_instance(trace, N=N, M=M, rates=[10, 20, 30],
+                                      delta=8.0, span=0.0, seed=7,
+                                      device="cpu")
+    span = float(port.run_fast_online(off).ccts.max())
+    return port.sample_online_instance(trace, N=N, M=M, rates=[10, 20, 30],
+                                       delta=8.0, span=span, seed=7,
+                                       device=device)
+
+
+def _faulted_manager(device, span):
+    from repro_torch.core import CoreDown, CoreUp, DeltaDrift, FaultInjector
+    from repro_torch.core import PortFlap
+    from repro_torch.service import FabricConfig, FabricManager
+
+    inj = FaultInjector([
+        CoreDown(t=0.25 * span, core=2), CoreUp(t=0.5 * span, core=2),
+        PortFlap(t=0.6 * span, t_end=0.62 * span, core=1, port=0),
+        DeltaDrift(t=0.7 * span, core=0, delta=12.0)])
+    return FabricManager(FabricConfig(rates=(10.0, 20.0, 30.0), delta=8.0,
+                                      N=16, faults=inj), device=device)
+
+
+def _serve(mgr, oinst, n_ticks=12, late_fault=None):
+    arrivals = list(port.arrival_stream(oinst))
+    span = arrivals[-1][1]
+    nxt, reports = 0, []
+    for x, T in enumerate(np.linspace(span / n_ticks, span, n_ticks)):
+        while nxt < len(arrivals) and arrivals[nxt][1] <= T:
+            mgr.submit(*arrivals[nxt])
+            nxt += 1
+        reports.append(mgr.tick(float(T)))
+        if late_fault is not None and x == n_ticks // 2:
+            mgr.report_fault(late_fault(float(T)))
+    reports.append(mgr.flush())
+    return reports
+
+
+def test_faulted_stream_on_the_card_equals_the_cpu_run(dev):
+    from repro_torch.core import CoreDown
+
+    runs = {}
+    for d in (dev, "cpu"):
+        oinst = _serve_stream(d)
+        span = float(oinst.releases.max())
+        mgr = _faulted_manager(d, span)
+        before = dict(ca.launches_by_kernel)
+        reports = _serve(mgr, oinst, late_fault=lambda T: CoreDown(
+            t=T - 0.05 * span, core=2))
+        assert ca.launches_by_kernel == before  # the streaming plane: none
+        runs[d] = (mgr, reports)
+    (gm, greps), (cm, creps) = runs[dev], runs["cpu"]
+    for g, c in zip(greps, creps):
+        assert g.program.device.type == "cuda"
+        for name in ("core", "ingress", "egress", "cid", "size",
+                     "t_establish", "t_complete"):
+            assert torch.equal(getattr(g.program, name).cpu(),
+                               getattr(c.program, name)), name
+        assert (g.committed_flows, g.finalized, g.pending_flows,
+                g.aborted) == (c.committed_flows, c.finalized,
+                               c.pending_flows, c.aborted)
+    assert torch.equal(gm.ccts().cpu(), cm.ccts())
+    assert gm.state.aborted_keys() == cm.state.aborted_keys()
+    program = gm.program()
+    program.validate()
+    assert program.device.type == "cuda"
+
+
+def test_empty_program_lands_on_the_card_by_default(dev):
+    from repro_torch.service import CircuitProgram, FabricConfig
+    from repro_torch.service import FabricManager, merge_programs
+
+    empty = CircuitProgram.empty((10.0, 20.0, 30.0), 8.0, 16)
+    assert empty.device.type == "cuda" and empty.rates.device.type == "cuda"
+    assert merge_programs([], [10.0, 20.0, 30.0], 8.0, 16).device.type == \
+        "cuda"
+    oinst = _serve_stream(dev)
+    mgr = FabricManager(FabricConfig(rates=(10.0, 20.0, 30.0), delta=8.0,
+                                     N=16), device=dev)
+    assert mgr.program().device.type == "cuda"
+    reports = _serve(mgr, oinst)
+    merged = empty.merge(mgr.program())
+    assert merged.device.type == "cuda"
+    assert merged.n_segments == sum(r.committed_flows for r in reports)
+    merged.validate()
+
+
+def test_one_shot_plane_launches_the_chain_kernel_on_a_miss_only(dev):
+    from repro_torch.service import FabricConfig, FabricManager
+
+    inst = port.sample_instance(port.synth_fb_trace(200, seed=7), N=24,
+                                M=60, rates=[10, 20, 30], delta=8.0, seed=3,
+                                device=dev)
+    mgr = FabricManager(FabricConfig(rates=(10.0, 20.0, 30.0), delta=8.0,
+                                     N=24), device=dev)
+    before = dict(ca.launches_by_kernel)
+    miss, hit0 = mgr.schedule_instance(inst, backend="kernel")
+    assert ca.launches_by_kernel == {
+        **before, "chain_sm90": before["chain_sm90"] + 1}
+    again, hit1 = mgr.schedule_instance(inst, backend="kernel")
+    assert (hit0, hit1) == (False, True)
+    assert ca.launches_by_kernel["chain_sm90"] == before["chain_sm90"] + 1
+    for name in ("core", "cid", "t_establish", "t_complete"):
+        assert torch.equal(getattr(miss, name), getattr(again, name))
+    miss.validate()
+    fp64, _ = mgr.schedule_instance(inst)  # the default: no launch
+    assert ca.launches_by_kernel["chain_sm90"] == before["chain_sm90"] + 1
+    fp64.validate()
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """The port's offline engine and referee vs the reference, on the CPU.
 
 ``repro_torch.core.run_fast`` is the port of ``repro.core.run_fast``: under
-``backend="kernel"`` (the default) the fp32 tau-aware choices of the
-kernel's plain version, as the reference's ``"pallas"``; under
-``backend="numpy"`` the fp64 host backend, as the reference's ``"numpy"``.
-The event loops are the reference's, so choices, establishment times and
-CCTs must be bit-identical for all five algorithms and all four scheduling
-policies. Only the weighted sum and the tail quantile are reduced in another
-order (torch vs numpy), hence rtol 1e-12 there.
+``backend="numpy"`` (the default, as in the reference) the fp64 host
+backend, as the reference's ``"numpy"``; under ``backend="kernel"`` the fp32
+tau-aware choices of the kernel's plain version, as the reference's
+``"pallas"``. The event loops are the reference's, so choices, establishment
+times and CCTs must be bit-identical for all five algorithms and all four
+scheduling policies; the weighted sum and the tail quantiles are reduced by
+numpy on the host, as the reference reduces them, so they are equal too.
 """
 import dataclasses
 
@@ -101,16 +101,15 @@ def test_run_fast_and_metrics_match_reference_pallas_backend(idx):
     for scheduling in POLICIES:
         want = ref.run_fast(inst, "ours", scheduling=scheduling,
                             backend="pallas")
-        got = port.run_fast(p, scheduling=scheduling)
+        got = port.run_fast(p, scheduling=scheduling, backend="kernel")
         assert_same_schedule(got, want, scheduling)
-        ccts, n_flows = port.run_fast_metrics(p, scheduling=scheduling)
+        ccts, n_flows = port.run_fast_metrics(p, scheduling=scheduling,
+                                              backend="kernel")
         assert n_flows == len(want.flows)
         np.testing.assert_array_equal(ccts.numpy(), want.ccts)
-        np.testing.assert_allclose(port.weighted_cct(got),
-                                   ref.weighted_cct(want), rtol=1e-12)
+        assert port.weighted_cct(got) == ref.weighted_cct(want)
         for q in (0.5, 0.95, 0.99):
-            np.testing.assert_allclose(port.tail_cct(got, q),
-                                       ref.tail_cct(want, q), rtol=1e-12)
+            assert port.tail_cct(got, q) == ref.tail_cct(want, q)
         port.validate(got)
         ref.validate(to_reference(got, inst))
 
@@ -128,7 +127,7 @@ def _moved(s, f, dt):
 
 def test_validate_raises_on_overlap_and_wrong_duration():
     inst = INSTANCES[-1]
-    s = port.run_fast(to_port(inst))
+    s = port.run_fast(to_port(inst), backend="kernel")
     port.validate(s)
     # two flows on one core's ingress port: move the later one onto the
     # earlier one's start, keeping its own timing consistent
@@ -156,7 +155,7 @@ def test_validate_raises_on_overlap_and_wrong_duration():
 
 def test_validate_raises_on_lost_demand_and_wrong_cct():
     inst = INSTANCES[0]
-    s = port.run_fast(to_port(inst))
+    s = port.run_fast(to_port(inst), backend="kernel")
     # drop a flow that does not finish its coflow: only conservation breaks
     last = s.ccts[s.pi[s.pos]]
     f = int(torch.nonzero(s.t_complete < last)[0, 0])
@@ -209,8 +208,9 @@ def test_run_fast_numpy_backend_matches_reference(idx):
         ccts, n_flows = port.run_fast_metrics(p, alg, **kw)
         np.testing.assert_array_equal(ccts.numpy(), want.ccts)
         assert n_flows == len(want.flows)
-        np.testing.assert_allclose(port.weighted_cct(got),
-                                   ref.weighted_cct(want), rtol=1e-12)
+        assert port.weighted_cct(got) == ref.weighted_cct(want)
+        for q in (0.95, 0.99):
+            assert port.tail_cct(got, q) == ref.tail_cct(want, q)
         port.validate(got)
 
 
@@ -224,7 +224,8 @@ def test_run_fast_kernel_backend_matches_reference_pallas(idx):
     for alg, sched in POINTS:
         want = ref.run_fast(inst, alg, seed=idx, scheduling=sched,
                             backend="pallas")
-        got = port.run_fast(p, alg, seed=idx, scheduling=sched)
+        got = port.run_fast(p, alg, seed=idx, scheduling=sched,
+                            backend="kernel")
         assert_same_schedule(got, want, f"{alg} {sched}")
 
 
@@ -297,7 +298,8 @@ def test_release_drift_and_sunflow_loops_match_reference(idx):
 
 def test_backend_choice_is_the_references_three_way_choice(monkeypatch):
     """The kernel serves tau-aware runs under ``backend="kernel"`` without
-    drift or locality, and nothing else; no fallback in either direction."""
+    drift or locality, and nothing else; no fallback in either direction.
+    The default backend is the reference's, ``"numpy"``: no kernel."""
     p = to_port(INSTANCES[-1])
     calls = []
     real = port_engine.coflow_assign
@@ -305,21 +307,30 @@ def test_backend_choice_is_the_references_three_way_choice(monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     drifted = np.full(p.K, p.delta)
     drifted[1] += 4.0
+    kernel = dict(backend="kernel")
     for alg, kw, n in (
-            ("ours", {}, 1), ("sunflow-core", {}, 1),
-            ("ours", dict(delta_k=np.full(p.K, p.delta)), 1),
-            ("ours", dict(backend="numpy"), 0),
-            ("ours", dict(locality=0.5), 0),
-            ("ours", dict(delta_k=drifted), 0),
-            ("sunflow-core", dict(delta_k=drifted), 0),
-            ("rho-assign", {}, 0), ("rand-assign", {}, 0),
-            ("rand-sunflow", {}, 0)):
+            ("ours", kernel, 1), ("sunflow-core", kernel, 1),
+            ("ours", dict(delta_k=np.full(p.K, p.delta), **kernel), 1),
+            ("ours", dict(backend="numpy"), 0), ("ours", {}, 0),
+            ("sunflow-core", {}, 0),
+            ("ours", dict(locality=0.5, **kernel), 0),
+            ("ours", dict(delta_k=drifted, **kernel), 0),
+            ("sunflow-core", dict(delta_k=drifted, **kernel), 0),
+            ("rho-assign", kernel, 0), ("rand-assign", kernel, 0),
+            ("rand-sunflow", kernel, 0)):
         calls.clear()
         port.run_fast(p, alg, **kw)
         assert len(calls) == n, (alg, kw)
+    online = port.OnlineInstance(inst=p, releases=np.zeros(p.M))
     calls.clear()
-    port.run_fast_online(port.OnlineInstance(inst=p, releases=np.zeros(p.M)))
+    port.run_fast_online(online, backend="kernel")
     assert len(calls) == 1
+    calls.clear()
+    port.run_fast_online(online)
+    port.run_fast_metrics(p)
+    port.build_flow_table(p, port.order_coflows(p))
+    port.run_batch([p], ("ours",))
+    assert calls == []
 
 
 def test_flow_table_core_choices_are_kernel_choices():
@@ -328,9 +339,34 @@ def test_flow_table_core_choices_are_kernel_choices():
     inst = INSTANCES[-1]
     p = to_port(inst)
     pi = port.order_coflows(p)
-    table = port.build_flow_table(p, pi)
+    table = port.build_flow_table(p, pi, backend="kernel")
     want = ref_engine.build_flow_table(inst, pi.numpy(), "ours",
                                        backend="pallas")
     assert table.core.dtype == torch.int64
     np.testing.assert_array_equal(table.core.numpy(), want.core)
     np.testing.assert_array_equal(table.size.numpy(), want.size)
+
+
+def test_default_backend_is_the_references():
+    """The port defaults to the reference's ``backend="numpy"``. On phase
+    10's M=48, N=150 trace instance (25,217 flows) the default gives the
+    reference's weighted CCT; the kernel, opt-in, its fp32 choices' own."""
+    inst = ref.sample_instance(ref.synth_fb_trace(526, seed=2026), N=150,
+                               M=48, rates=(10, 20, 30), delta=8, seed=0)
+    want = ref.run_fast(inst)
+    p = to_port(inst)
+    got = port.run_fast(p)
+    assert_same_schedule(got, want)
+    assert port.weighted_cct(got) == ref.weighted_cct(want) \
+        == 90920.77317031805
+    for q in (0.95, 0.99):
+        assert port.tail_cct(got, q) == ref.tail_cct(want, q)
+    assert port.weighted_cct(port.run_fast(p, backend="kernel")) \
+        == 84243.46481403771
+    small = INSTANCES[2]
+    oinst = ref.OnlineInstance(inst=small, releases=np.linspace(
+        0.0, 40.0, small.M))
+    ccts, _ = port.run_fast_metrics(to_port(small),
+                                    releases=oinst.releases)
+    np.testing.assert_array_equal(ccts.numpy(),
+                                  ref.run_fast_online(oinst).ccts)

@@ -84,7 +84,8 @@ def test_run_fast_online_kernel_backend_matches_reference_pallas(trial):
             continue  # no kernel: the same host backend as test above
         want = ref.run_fast_online(oinst, alg, seed=trial, scheduling=sched,
                                    backend="pallas")
-        got = port.run_fast_online(p, alg, seed=trial, scheduling=sched)
+        got = port.run_fast_online(p, alg, seed=trial, scheduling=sched,
+                                   backend="kernel")
         assert_same_schedule(got, want, f"{alg} {sched}")
 
 
@@ -126,15 +127,16 @@ def test_drifted_delays_online(trial):
                 assert_same_schedule(got, want, f"{alg} {sched} {dk}")
                 port.validate(got, releases=p.releases,
                               flow_delta=dk[got.core.numpy()])
-    nominal = port.run_fast_online(p, delta_k=np.full(K, p.inst.delta))
-    plain = port.run_fast_online(p)
+    nominal = port.run_fast_online(p, delta_k=np.full(K, p.inst.delta),
+                                   backend="kernel")
+    plain = port.run_fast_online(p, backend="kernel")
     assert torch.equal(nominal.t_complete, plain.t_complete)
 
 
 def test_validate_checks_releases_and_flow_delta_as_the_reference_does():
     oinst = _oinst(8, "uniform")
     p = to_port_online(oinst)
-    s = port.run_fast_online(p)
+    s = port.run_fast_online(p, backend="kernel")
     port.validate(s, releases=p.releases)
     # one coflow released just after its first establishment: both raise
     bad = oinst.releases.copy()

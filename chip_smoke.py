@@ -100,7 +100,27 @@ non-zero without printing a result):
      bytes delivered exactly once, every CCT finite; then
      examples/serve_fabric.py's stream (N=16, M=80) with the same faults
      through ``FabricState`` on the card and on the CPU, every
-     ``TickCommit`` equal. A run over the budget says so.
+     ``TickCommit`` equal. A run over the budget says so;
+ 13. the paper's guarantee and its oracles (budget ``ORACLE_BUDGET_S``):
+     (a) at full width and depth, phase 9's offline fp64 choices on phase
+     4's instance (191,551 flows) through ``assignment_from_choices`` and
+     ``schedule_all_cores``, whose CCTs must equal phase 9's fp64 run bit
+     for bit, then every certificate of ``core/theory.py`` on it (Lemma 1,
+     Lemma 2 and Theorem 1 must hold; Lemma 3 and Theorem 2, which the
+     reference documents as violated, report their violations), each
+     empirical ratio beside its bound and ``gamma_w``, then Lemma 1 and
+     Theorem 1 on phase 4's kernel schedule and its choices' divergence
+     from ``assign_ref`` against the kernel gate's allowance; (b) the
+     oracle gates
+     ``cross_check`` and ``cross_check_online`` with ``backend="kernel"``
+     on the trace cut to ``M_ORACLE`` coflows (N=150), one launch of the
+     chain kernel each, the gate's divergence beside its allowance; (c)
+     ``run_batch(check="oracle")`` over the five algorithms and the three
+     list policies, offline and online, on phase 10's small instance (N=24,
+     M=60) on the card, the fp64 backend for every point and the kernel for
+     the tau-aware ones, then one point and the oracle ``run`` with all
+     five certificates on the CPU, equal to the card's bit for bit. A run
+     over the budget says so; 13b's depth is what gets cut.
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -151,6 +171,11 @@ M_GRID = 48
 #: Phases 11-12: service ticks, evenly spaced over the arrival span, and
 #: the budget of the two phases together on the card's host.
 STREAM_TICKS, STREAM_BUDGET_S = 16, 150.0
+#: Phase 13: its budget on the card's host, and the depth of 13b's oracle
+#: gates (the trace cut to M_ORACLE coflows at N=150; the legacy per-core
+#: loops rescan every pending flow at every event, so their time grows
+#: faster than the flows).
+ORACLE_BUDGET_S, M_ORACLE = 150.0, 16
 #: tests/test_kernels_assign.py CASES: (F, K, N, delta).
 CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
 
@@ -505,12 +530,15 @@ def main() -> int:
 
     fa_rows = serve_phases(torch, dev, built, sync_time, event_ms)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
-    online_launches, oinst, ccts64, ogrid = online_phases(
+    online_launches, oinst, ccts64, ogrid, offline64 = online_phases(
         torch, dev, sync_time, kernel_vs_plain, trace, inst, sched)
     log(f"[10] phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     stream_launches = stream_phases(torch, dev, sync_time, oinst, ccts64,
                                     ogrid, sched)
     log(f"[12] phases 1-12 took {time.perf_counter() - t_start:.1f} s")
+    oracle_launches = oracle_phases(torch, dev, sync_time, trace, inst, sched,
+                                    offline64)
+    log(f"[13] phases 1-13 took {time.perf_counter() - t_start:.1f} s")
 
     assign_row = {"route": "cuda",
                   "replaces": "src/repro/kernels/coflow_assign.py:38",
@@ -521,12 +549,13 @@ def main() -> int:
         {"name": "coflow_assign",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
          "launches": main_launches["chain_sm90"]
-         + online_launches["chain_sm90"] + stream_launches["chain_sm90"],
+         + online_launches["chain_sm90"] + stream_launches["chain_sm90"]
+         + oracle_launches["chain_sm90"],
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
         {"name": "coflow_assign_warp",
          "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
          "launches": main_launches["warp"] + online_launches["warp"]
-         + stream_launches["warp"],
+         + stream_launches["warp"] + oracle_launches["warp"],
          "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
         *fa_rows]}))
     log(smi)
@@ -538,8 +567,9 @@ def main() -> int:
 def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
     """Phases 9-10: the online path at full width and the ablation grid.
     Returns phase 9's assignment-kernel launches by kernel, its online
-    instance, the fp64 backend's online CCTs on it, and phase 10's online
-    instance."""
+    instance, the fp64 backend's online CCTs on it, phase 10's online
+    instance, and phase 4's instance offline in fp64: ``(pi, flows,
+    choices, CCTs)``."""
     from repro_torch.core import (ALGORITHMS, BACKENDS, assign_fast,
                                   extract_flows, online_orders,
                                   order_coflows, run_batch, run_fast,
@@ -641,7 +671,8 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
         f"backend took {t_fp64:.3f} s")
     off_pi = order_coflows(inst)
     off_flows = extract_flows(inst, off_pi)
-    off_same = assign_fast(inst, off_pi, flows=off_flows) == coflow_assign(
+    off_choices = assign_fast(inst, off_pi, flows=off_flows)
+    off_same = off_choices == coflow_assign(
         *off_flows[2:], inst.rates, inst.delta, n_ports=inst.N).long()
     log(f"[9] the same offline (phase 4's pi-ordered flows): "
         f"{int(off_same.sum())} of {F} agree "
@@ -733,7 +764,8 @@ def online_phases(torch, dev, sync_time, kernel_vs_plain, trace, inst, sched):
         f"{n_points} grid points (5 algorithms x their policies x "
         f"{len(BACKENDS)} backends x offline/online) equal on GPU and CPU in "
         f"choices, t_establish and CCTs, and pass validate")
-    return launches, oinst, fp64_ccts["online"], ogrid
+    return launches, oinst, fp64_ccts["online"], ogrid, (
+        off_pi, off_flows, off_choices, fp64_ccts["offline"])
 
 
 def fault_events(span: float) -> list:
@@ -1031,6 +1063,209 @@ def stream_phases(torch, dev, sync_time, oinst, ccts64, foinst, sched):
     if t11 + t12 > STREAM_BUDGET_S:
         log(f"[12] over the budget even so: phase 11 alone took {t11:.1f} s")
     return {k: stream_launches[k] + oneshot_launches[k] for k in ca.KERNELS}
+
+
+def oracle_phases(torch, dev, sync_time, trace, inst, sched, offline64):
+    """Phase 13: the paper's guarantee and its oracles. ``inst`` and
+    ``sched`` are phase 4's instance and kernel schedule, ``offline64`` its
+    fp64 ``(pi, flows, choices, CCTs)`` from phase 9. Returns the phase's
+    assignment-kernel launches by kernel."""
+    from repro_torch.core import (ALGORITHMS, assignment_from_choices,
+                                  check_lemma1, check_lemma2, check_lemma3,
+                                  check_theorem1, check_theorem2,
+                                  cross_check, cross_check_online,
+                                  extract_flows, gamma_w, order_coflows,
+                                  online_orders, run, run_batch, run_fast,
+                                  sample_instance, sample_online_instance,
+                                  schedule_all_cores, synth_fb_trace,
+                                  validate)
+    from repro_torch.core.engine import _choices_of, _kernel_divergence
+    from repro_torch.kernels import coflow_assign as ca
+
+    t13 = time.perf_counter()
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+
+    # ---- 13a. the certificates at full width and depth -------------------
+    pi, flows, choices, ccts64 = offline64
+    a, t_a = sync_time(lambda: assignment_from_choices(inst, pi, flows,
+                                                       choices))
+    s64, t_s = sync_time(lambda: schedule_all_cores(inst, pi, a))
+    if not torch.equal(s64.ccts, ccts64):
+        bad = int(torch.nonzero(s64.ccts != ccts64)[0, 0])
+        raise AssertionError(f"schedule_all_cores CCT of coflow {bad} "
+                             f"{float(s64.ccts[bad])!r} != phase 9's fp64 "
+                             f"{float(ccts64[bad])!r}")
+    _, t_v = sync_time(lambda: validate(s64))
+    log(f"[13a] phase 9's offline fp64 choices on phase 4's instance "
+        f"({s64.n_flows} flows): assignment_from_choices {t_a:.3f} s, "
+        f"schedule_all_cores {t_s:.3f} s, validate {t_v:.3f} s; CCTs equal "
+        f"phase 9's fp64 run_fast_metrics bit for bit; weighted CCT "
+        f"{s64.total_weighted_cct!r}")
+    certs, t_c = {}, {}
+    for name, fn in (("lemma1", check_lemma1), ("lemma2", check_lemma2),
+                     ("theorem1", check_theorem1),
+                     ("lemma3", lambda x: check_lemma3(x, strict=False)),
+                     ("theorem2", lambda x: check_theorem2(x, strict=False))):
+        certs[name], t_c[name] = sync_time(lambda: fn(s64))
+
+    def lemma1_line(res):
+        ccts, lbs = res["ccts"].cpu().numpy(), res["lbs"].cpu().numpy()
+        pos = lbs > 0
+        ratio = float((ccts[pos] / lbs[pos]).min())
+        return (f"min CCT / (delta + rho/R) {ratio!r} (bound 1, "
+                f"{int(pos.sum())} coflows)")
+
+    def theorem_line(res):
+        return (f"sum w T / sum w T_LB {res['empirical_ratio']!r} against "
+                f"its bound {float(res['bound'])!r}")
+
+    l2 = max(lhs / rhs for lhs, rhs in certs["lemma2"]["pairs"] if rhs > 0)
+    l3 = certs["lemma3"]
+    l3_worst = float(max(t / b for t, b in l3["pairs"] if b > 0))
+    t2 = certs["theorem2"]
+    t2_holds = t2["empirical_ratio"] <= t2["bound"]
+    log(f"[13a] Lemma 1 holds: {lemma1_line(certs['lemma1'])} "
+        f"({t_c['lemma1']:.3f} s)")
+    log(f"[13a] Lemma 2 holds: max_m max_k T_LB^k(D^k_1:m) / (rho_1:m/r_max "
+        f"+ tau_1:m delta) {l2!r} (bound 1; {t_c['lemma2']:.3f} s)")
+    log(f"[13a] Theorem 1 holds: {theorem_line(certs['theorem1'])} "
+        f"({t_c['theorem1']:.3f} s)")
+    log(f"[13a] Lemma 3 (strict=False): violated at {len(l3['violations'])} "
+        f"of {inst.M} positions; worst T_pi(m) / (2 max_k T_LB^k) "
+        f"{l3_worst!r} (bound 1; {t_c['lemma3']:.3f} s)")
+    log(f"[13a] Theorem 2 (strict=False): "
+        f"{'holds' if t2_holds else 'violated'}: {theorem_line(t2)} "
+        f"({t_c['theorem2']:.3f} s); gamma_w {gamma_w(inst.weights)!r}, psi "
+        f"{inst.psi}")
+    k1, k_t1 = check_lemma1(sched), check_theorem1(sched)
+    log(f"[13a] phase 4's kernel schedule: Lemma 1 holds: {lemma1_line(k1)}; "
+        f"Theorem 1 holds: {theorem_line(k_t1)}")
+    # the kernel gate's assignment half at full depth (its legacy replay
+    # does not fit the phase): phase 4's kernel choices vs assign_ref
+    (kd, ka), t_kd = sync_time(lambda: _kernel_divergence(
+        inst, flows, _choices_of(sched, pi, flows, "phase 4")))
+    log(f"[13a] the kernel gate at full depth: {kd} of {s64.n_flows} of "
+        f"phase 4's kernel choices differ from assign_ref at fp32 inputs "
+        f"(allowance {ka}), so cross_check(backend=\"kernel\") at "
+        f"M={inst.M} would {'raise' if kd > ka else 'pass'} its assignment "
+        f"gate "
+        f"({t_kd:.3f} s)")
+    t13a = time.perf_counter() - t13
+
+    # ---- 13b. the oracle gates, backend="kernel" -------------------------
+    t13b = time.perf_counter()
+    cut = sample_instance(trace, N=N_PORTS, M=M_ORACLE, rates=RATES,
+                          delta=DELTA, seed=0, device=dev)
+    gates = {}
+    for mode in ("offline", "online"):
+        before = dict(ca.launches_by_kernel)
+        if mode == "offline":
+            fast, t_g = sync_time(lambda: cross_check(cut, "ours",
+                                                      backend="kernel"))
+            gi, order = cut, order_coflows(cut)
+            oinst = sample_online_instance(
+                trace, N=N_PORTS, M=M_ORACLE, rates=RATES, delta=DELTA,
+                span=float(fast.ccts.max()), seed=0, device=dev)
+        else:
+            fast, t_g = sync_time(lambda: cross_check_online(
+                oinst, "ours", backend="kernel"))
+            gi = oinst.inst
+            order = online_orders(gi, oinst.releases)[0]
+        n = {k: ca.launches_by_kernel[k] - before[k] for k in ca.KERNELS}
+        if n != {"chain_sm90": 1, "warp": 0}:
+            raise AssertionError(f"cross_check ({mode}, kernel) must launch "
+                                 f"the chain kernel once; counted {n}")
+        fl = extract_flows(gi, order)
+        diverged, allowed = _kernel_divergence(
+            gi, fl, _choices_of(fast, order, fl, mode))
+        gates[mode] = t_g
+        log(f"[13b] cross_check{'_online' if mode == 'online' else ''}"
+            f"(backend=\"kernel\") at M={M_ORACLE}, N={N_PORTS} "
+            f"({fast.n_flows} flows): passed in {t_g:.3f} s, launches {n}; "
+            f"kernel vs assign_ref at fp32 inputs: {diverged} of "
+            f"{fast.n_flows} choices diverge (allowance {allowed})")
+    t13b = time.perf_counter() - t13b
+    log(f"[13b] the gates at M_ORACLE={M_ORACLE} took {t13b:.1f} s (offline "
+        f"{gates['offline']:.1f} s, online {gates['online']:.1f} s); the "
+        f"legacy loops rescan every pending flow at every event, so this "
+        f"depth is what the phase cuts when it overruns its "
+        f"{ORACLE_BUDGET_S:.0f} s budget (PERF.md section 5)")
+
+    # ---- 13c. the grid under the oracle ----------------------------------
+    t13c = time.perf_counter()
+    policies = ("work-conserving", "priority-guard", "reserving")
+    small_trace = synth_fb_trace(200, seed=7)
+    small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
+                                delta=DELTA, seed=3, device=d)
+             for d in (dev, "cpu")}
+    span_s = float(run_fast(small["cpu"], backend="kernel").ccts.max())
+    osmall = sample_online_instance(small_trace, N=24, M=60, rates=RATES,
+                                    delta=DELTA, span=span_s, seed=3,
+                                    device=dev)
+    kw = dict(seeds=(3,), schedulings=policies, check="oracle")
+    before = dict(ca.launches_by_kernel)
+    (host, t_host) = sync_time(lambda: run_batch(
+        [small[dev], osmall], ALGORITHMS, backend="numpy", **kw))
+    mid = dict(ca.launches_by_kernel)
+    (kern, t_kern) = sync_time(lambda: run_batch(
+        [small[dev], osmall], ("ours", "sunflow-core"), backend="kernel",
+        **kw))
+    n_host = {k: mid[k] - before[k] for k in ca.KERNELS}
+    n_kern = {k: ca.launches_by_kernel[k] - mid[k] for k in ca.KERNELS}
+    if n_host != {"chain_sm90": 0, "warp": 0} or n_kern != {
+            "chain_sm90": len(kern), "warp": 0}:
+        raise AssertionError(f"the oracle grid must launch nothing on the "
+                             f"host backend and the chain kernel once per "
+                             f"kernel point; counted {n_host}, {n_kern}")
+    for backend, tab in (("numpy", host), ("kernel", kern)):
+        for r in tab:
+            log(f"[13c]   {'online' if r.instance else 'offline':7s} "
+                f"{backend:6s} {r.algorithm:12s} {r.scheduling:15s} weighted "
+                f"CCT {r.weighted_cct!r}  wall {r.wall_s:.3f} s")
+    log(f"[13c] run_batch(check=\"oracle\") on the small instance (N=24, "
+        f"M=60, {host.rows[0].n_flows} flows), offline and online: "
+        f"{len(host)} fp64 points in {t_host:.1f} s and {len(kern)} kernel "
+        f"points in {t_kern:.1f} s, every point held to the oracles and the "
+        f"referee; chain kernel launches {n_kern} (one per kernel point)")
+    before = ca.launches_by_kernel["chain_sm90"]
+    pts = {dev: cross_check(small[dev], "ours", seed=3, backend="kernel")}
+    if ca.launches_by_kernel["chain_sm90"] != before + 1:
+        raise AssertionError("the card's point must launch the chain kernel")
+    pts["cpu"] = cross_check(small["cpu"], "ours", seed=3, backend="kernel")
+    for name in ("pi", "core", "t_establish", "ccts"):
+        if not torch.equal(getattr(pts[dev], name).cpu(),
+                           getattr(pts["cpu"], name)):
+            raise AssertionError(f"13c point: card {name} != CPU {name}")
+    oracle = {d: run(small[d], "ours") for d in (dev, "cpu")}
+    for name in ("pi", "core", "t_establish", "ccts"):
+        if not torch.equal(getattr(oracle[dev], name).cpu(),
+                           getattr(oracle["cpu"], name)):
+            raise AssertionError(f"13c oracle run: card {name} != CPU {name}")
+    for fn in (check_lemma1, check_lemma2, check_theorem1,
+               lambda x: check_lemma3(x, strict=False),
+               lambda x: check_theorem2(x, strict=False)):
+        got, want = fn(oracle[dev]), fn(oracle["cpu"])
+        got = {k: v.cpu() if torch.is_tensor(v) else v for k, v in got.items()}
+        same = got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) if torch.is_tensor(want[k])
+            else got[k] == want[k] for k in want)
+        if not same:
+            raise AssertionError("13c: a certificate's dict differs between "
+                                 "the card and the CPU")
+    t13c = time.perf_counter() - t13c
+    log(f"[13c] one point (ours, work-conserving, backend=\"kernel\") "
+        f"through cross_check and the oracle run(\"ours\") with all five "
+        f"certificates: card == CPU in choices, t_establish, CCTs and every "
+        f"certificate's dict; 13c took {t13c:.1f} s")
+    launches = dict(ca.launches_by_kernel)
+    t13 = time.perf_counter() - t13
+    log(f"[13] phase 13 took {t13:.1f} s (13a {t13a:.1f}, 13b {t13b:.1f}, "
+        f"13c {t13c:.1f}; budget {ORACLE_BUDGET_S:.0f} s); assignment kernel "
+        f"launches {launches}")
+    if t13 > ORACLE_BUDGET_S:
+        log(f"[13] over the budget: cut M_ORACLE (13b took {t13b:.1f} s)")
+    return launches
 
 
 def device_time_by_kind(torch, fn):

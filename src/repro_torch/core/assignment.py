@@ -19,15 +19,29 @@ seed draws the same cores: a torch generator cannot reproduce that stream.
 
 Flow tensors may live on any device; choices come back as int64 on the
 device of the flows.
+
+The reference's dataclass oracles are here too: ``assign_tau_aware``,
+``assign_rho_only`` and ``assign_random`` build an :class:`Assignment` of
+per-flow :class:`AssignedFlow` records through ``lower_bounds.CoreState``,
+one flow at a time, as the reference's do; ``assignment_from_choices``
+builds one from flat choices. They are the second, deliberately simple
+implementation that ``engine.cross_check`` holds the flat backends to, and
+the input of the theory certificates. Their state is host numpy; the
+assignment's ``pi`` stays on the instance's device.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from .coflow import Instance, extract_flows
+from .coflow import Flow, Instance, _flows_of, extract_flows
+from .lower_bounds import CoreState
 
-__all__ = ["ASSIGN_POLICIES", "FlatAssignState", "assign_fast"]
+__all__ = ["AssignedFlow", "Assignment", "assign_tau_aware",
+           "assign_rho_only", "assign_random", "ASSIGN_POLICIES",
+           "FlatAssignState", "assign_fast", "assignment_from_choices"]
 
 ASSIGN_POLICIES = ("tau-aware", "rho-only", "random")
 
@@ -37,6 +51,102 @@ def _host_f64(x: torch.Tensor | np.ndarray) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.cpu().numpy()
     return np.asarray(x, dtype=np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class AssignedFlow:
+    flow: Flow
+    core: int
+
+
+@dataclasses.dataclass
+class Assignment:
+    """The assignment phase's result for a whole instance: per coflow
+    position m in ``pi`` (an ``(M,)`` int64 tensor on the instance's
+    device), the coflow's :class:`AssignedFlow` records, and the final
+    prefix state."""
+
+    inst: Instance
+    pi: torch.Tensor
+    flows: list[list[AssignedFlow]]     # indexed by position m in pi
+    state: CoreState
+    # D^k_{1:_cum_upto+1}, extended by forward prefix_per_core queries
+    _cum: np.ndarray | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    _cum_upto: int = dataclasses.field(
+        default=-1, init=False, repr=False, compare=False)
+
+    def per_core_demand(self, m_pos: int) -> torch.Tensor:
+        """D^k_{pi(m)} for every core: ``(K, N, N)`` on the instance's
+        device."""
+        out = np.zeros((self.inst.K, self.inst.N, self.inst.N))
+        for af in self.flows[m_pos]:
+            out[af.core, af.flow.i, af.flow.j] += af.flow.size
+        return torch.from_numpy(out).to(self.inst.device)
+
+    def prefix_per_core(self, m_pos: int) -> torch.Tensor:
+        """D^k_{1:m} (inclusive) for every core: ``(K, N, N)`` on the
+        instance's device, a copy the caller may mutate.
+
+        The running sum is cached, so a forward scan over all prefixes adds
+        each flow once; a backward query rebuilds forward from zero, so every
+        result equals a from-scratch sum bit for bit.
+        """
+        if self._cum is None or self._cum_upto > m_pos:
+            self._cum = np.zeros((self.inst.K, self.inst.N, self.inst.N))
+            self._cum_upto = -1
+        while self._cum_upto < m_pos:
+            self._cum_upto += 1
+            for af in self.flows[self._cum_upto]:
+                self._cum[af.core, af.flow.i, af.flow.j] += af.flow.size
+        return torch.from_numpy(self._cum.copy()).to(self.inst.device)
+
+    def all_flows(self) -> list[AssignedFlow]:
+        return [af for per_coflow in self.flows for af in per_coflow]
+
+
+def _iter_coflow_flows(inst: Instance, pi: list[int]) -> list[list[Flow]]:
+    """Per position of ``pi``, its coflow's flows, largest first."""
+    cids = inst.cids.tolist()
+    return [_flows_of(inst.host_demand(ci), cids[ci], pos)
+            for pos, ci in enumerate(pi)]
+
+
+def _oracle(inst: Instance, pi: torch.Tensor, pick) -> Assignment:
+    """Assign every flow, in pi order, to ``pick(state, flow)``."""
+    pi = torch.as_tensor(pi, dtype=torch.int64, device=inst.device)
+    state = CoreState(K=inst.K, N=inst.N, rates=inst.rates, delta=inst.delta)
+    out: list[list[AssignedFlow]] = []
+    for flows in _iter_coflow_flows(inst, pi.tolist()):
+        placed: list[AssignedFlow] = []
+        for f in flows:
+            k = pick(state, f)
+            state.assign(f.i, f.j, f.size, k)
+            placed.append(AssignedFlow(flow=f, core=k))
+        out.append(placed)
+    return Assignment(inst=inst, pi=pi, flows=out, state=state)
+
+
+def assign_tau_aware(inst: Instance, pi: torch.Tensor) -> Assignment:
+    """The paper's greedy tau-aware assignment (Alg. 1, lines 5-17); argmin
+    ties go to the lowest core."""
+    return _oracle(inst, pi, lambda st, f: int(np.argmin(
+        st.candidate_bounds(f.i, f.j, f.size))))
+
+
+def assign_rho_only(inst: Instance, pi: torch.Tensor) -> Assignment:
+    """RHO-ASSIGN: tau-blind, minimise rho^k_{1:m} / r^k after placement."""
+    return _oracle(inst, pi, lambda st, f: int(np.argmin(
+        st.candidate_rho_bounds(f.i, f.j, f.size))))
+
+
+def assign_random(inst: Instance, pi: torch.Tensor, *,
+                  seed: int = 0) -> Assignment:
+    """RAND-ASSIGN: core k with probability ``r^k / R``, one PCG64 draw per
+    flow (``np.random.default_rng(seed)``), as the reference."""
+    rng = np.random.default_rng(seed)
+    probs = _host_f64(inst.rates) / inst.R
+    return _oracle(inst, pi, lambda st, f: int(rng.choice(inst.K, p=probs)))
 
 
 class FlatAssignState:
@@ -437,3 +547,27 @@ def assign_fast(
         core = rng.choice(inst.K, size=int(fi.shape[0]), p=p).astype(np.int64)
         return torch.from_numpy(core).to(inst.device)
     raise ValueError(f"unknown policy {policy!r}; one of {ASSIGN_POLICIES}")
+
+
+def assignment_from_choices(
+    inst: Instance,
+    pi: torch.Tensor,
+    flows: tuple[torch.Tensor, ...],
+    choices: torch.Tensor,
+) -> Assignment:
+    """An :class:`Assignment` from flat flows and their core choices.
+
+    ``flows`` is the ``(pos, cid, fi, fj, size)`` tuple of
+    ``extract_flows(inst, pi)`` and ``choices`` aligns with it; both cross
+    to the host once. ``CoreState.assign`` is replayed flow by flow, so the
+    state equals the dataclass oracles' bit for bit.
+    """
+    pi = torch.as_tensor(pi, dtype=torch.int64, device=inst.device)
+    pos, cid, fi, fj, sizes = (t.tolist() for t in flows)
+    state = CoreState(K=inst.K, N=inst.N, rates=inst.rates, delta=inst.delta)
+    out: list[list[AssignedFlow]] = [[] for _ in range(inst.M)]
+    for p, c, i, j, d, k in zip(pos, cid, fi, fj, sizes, choices.tolist()):
+        f = Flow(coflow=p, cid=c, i=i, j=j, size=d)
+        state.assign(i, j, d, k)
+        out[p].append(AssignedFlow(flow=f, core=k))
+    return Assignment(inst=inst, pi=pi, flows=out, state=state)

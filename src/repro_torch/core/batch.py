@@ -8,9 +8,9 @@ its release times), and then its points run the online engine.
 Points run one after another in this process. A pool of worker processes
 (the reference's ``workers > 1``) is not ported: forking a process that
 holds a CUDA context is unsafe, and a spawn pool over one card is later
-work (ROADMAP queue 1, item 4). The reference's ``check="oracle"`` replays
-its legacy per-core schedulers, which the port does not have yet (ROADMAP
-queue 1, item 8).
+work (ROADMAP queue 1, item 4). ``check="oracle"`` holds every point to
+the reference's oracles through ``engine.cross_check`` /
+``cross_check_online``, as the reference does.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from .coflow import Instance, OnlineInstance
-from .engine import BACKENDS, run_fast, run_fast_metrics, run_fast_online
+from .engine import (BACKENDS, cross_check, cross_check_online, run_fast,
+                     run_fast_metrics, run_fast_online)
 from .scheduler import ALGORITHMS, tail_quantile, weighted_sum
 from .simulator import validate
 
@@ -132,10 +133,18 @@ def _run_one(idx: int, inst: Instance, rel: torch.Tensor | None, alg: str,
     if rel is None:
         s = run_fast(inst, alg, seed=seed, scheduling=sched, backend=backend)
     else:
-        s = run_fast_online(OnlineInstance(inst=inst, releases=rel), alg,
-                            seed=seed, scheduling=sched, backend=backend)
+        oinst = OnlineInstance(inst=inst, releases=rel)
+        s = run_fast_online(oinst, alg, seed=seed, scheduling=sched,
+                            backend=backend)
     wall = _synced_wall(inst.device, t0)
-    if check == "validate":
+    if check == "oracle":
+        if rel is None:
+            cross_check(inst, alg, seed=seed, scheduling=sched, fast=s,
+                        backend=backend)
+        else:
+            cross_check_online(oinst, alg, seed=seed, scheduling=sched,
+                               fast=s, backend=backend)
+    elif check == "validate":
         validate(s, releases=rel)
     return row_from_ccts(idx, alg, sched, seed, inst.weights, s.ccts,
                          s.n_flows, wall)
@@ -169,8 +178,10 @@ def run_batch(
     :func:`engine.run_fast_online`.
 
     ``check``: ``"validate"`` (default) runs the referee on every schedule
-    (release-respecting for online points), ``"none"`` skips it;
-    ``"oracle"`` is not ported. ``backend`` is the assignment backend of
+    (release-respecting for online points), ``"oracle"`` also holds it to
+    the reference's oracles (``engine.cross_check`` /
+    ``cross_check_online``, given the point's schedule, so a kernel point
+    launches the kernel once), ``"none"`` skips both. ``backend`` is the assignment backend of
     every point (:data:`engine.BACKENDS`). ``materialize="metrics"`` stops
     each point at its CCTs, with no ``Schedule``, and requires
     ``check="none"``. ``workers`` in ``(None, 0, 1)`` runs the points
@@ -182,11 +193,7 @@ def run_batch(
     unknown = set(algorithms) - set(ALGORITHMS)
     if unknown:
         raise ValueError(f"unknown algorithms {sorted(unknown)}")
-    if check == "oracle":
-        raise NotImplementedError(
-            'check="oracle" replays the legacy per-core schedulers, which '
-            "are not ported yet: ROADMAP queue 1, item 8")
-    if check not in ("none", "validate"):
+    if check not in ("none", "validate", "oracle"):
         raise ValueError(f"unknown check {check!r}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")

@@ -10,10 +10,18 @@ An :class:`Instance` keeps the demand of all M coflows stacked in one
 numpy's order (pairwise along a row, left to right down a column), so rho,
 the WSPT scores and the order pi built from them are bit-identical to the
 reference's.
+
+The reference's oracle path (``scheduler.run``, ``online.run_online``, the
+theory certificates) works on per-coflow host matrices and per-flow
+:class:`Flow` records: :meth:`Instance.host_demand` gives coflow m's matrix
+as the reference's ``inst.coflows[m].demand`` (one host copy of the stack,
+made on first use), and :func:`nonzero_flows` lists a coflow's flows in the
+reference's order.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -23,6 +31,7 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "Coflow",
+    "Flow",
     "Instance",
     "OnlineInstance",
     "instance_from_arrays",
@@ -32,6 +41,7 @@ __all__ = [
     "col_loads",
     "rho",
     "tau",
+    "nonzero_flows",
     "extract_flows",
 ]
 
@@ -65,8 +75,24 @@ class Coflow:
         return int(self.demand.shape[0])
 
     @property
+    def tau(self) -> int:
+        return tau(self.demand)
+
+    @property
     def num_flows(self) -> int:
         return int((self.demand > 0).sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class Flow:
+    """One (sub)flow record of the oracle path's assignment and scheduling
+    phases, in host scalars as the reference's."""
+
+    coflow: int  # position in the global order pi (0-based)
+    cid: int     # original coflow id
+    i: int       # ingress port
+    j: int       # egress port
+    size: float  # bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +152,35 @@ class Instance:
     def R(self) -> float:
         """Aggregate per-port rate across cores (numpy's summation order)."""
         return float(self.rates.cpu().numpy().sum())
+
+    @property
+    def r_max(self) -> float:
+        return float(self.rates.max())
+
+    @property
+    def tau_max(self) -> int:
+        """The largest tau of any coflow (0 without coflows)."""
+        if self.M == 0 or self.N == 0:
+            return 0
+        nz = self.demand > 0
+        return int(torch.maximum(nz.sum(dim=2).amax(), nz.sum(dim=1).amax()))
+
+    @property
+    def psi(self) -> int:
+        """psi = max{K, tau_max} from Theorem 1."""
+        return max(self.K, self.tau_max)
+
+    @functools.cached_property
+    def _host_stack(self) -> np.ndarray:
+        d = self.demand.detach().cpu().numpy().copy()
+        d.setflags(write=False)
+        return d
+
+    def host_demand(self, m: int) -> np.ndarray:
+        """Coflow ``m``'s ``(N, N)`` float64 demand on the host, read-only:
+        the reference's ``inst.coflows[m].demand``. The whole stack crosses
+        to the host once, on the first call, and is kept."""
+        return self._host_stack[m]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,6 +341,32 @@ def tau(D: torch.Tensor) -> int:
     if nz.numel() == 0:
         return 0
     return int(torch.maximum(nz.sum(dim=1).max(), nz.sum(dim=0).max()))
+
+
+def _flows_of(d: np.ndarray, cid: int, order_pos: int,
+              largest_first: bool = True) -> list[Flow]:
+    """The nonzero flows of one host demand matrix, sorted by size
+    (non-increasing by default) with an ``(i, j)`` tie-break."""
+    ii, jj = np.nonzero(d)
+    sizes = d[ii, jj]
+    if largest_first:
+        key = np.lexsort((jj, ii, -sizes))
+    else:
+        key = np.lexsort((jj, ii, sizes))
+    return [
+        Flow(coflow=order_pos, cid=cid, i=int(ii[t]), j=int(jj[t]),
+             size=float(sizes[t]))
+        for t in key
+    ]
+
+
+def nonzero_flows(c: Coflow, order_pos: int, *,
+                  largest_first: bool = True) -> list[Flow]:
+    """Nonzero flows of a coflow as :class:`Flow` records, sorted by size
+    (non-increasing by default), ties broken by ``(i, j)``: the reference's
+    order. Read from one host copy of the demand."""
+    return _flows_of(c.demand.detach().cpu().numpy(), c.cid, order_pos,
+                     largest_first)
 
 
 def extract_flows(

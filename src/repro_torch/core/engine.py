@@ -25,26 +25,41 @@ overhead would dominate. Moving them onto the card is later work.
 Completion times keep the reference's float associativity,
 ``(t + delta) + size/rate``, so establishment times and CCTs are
 bit-identical to the reference given the same core choices.
+
+The differential gates are here too: :func:`cross_check` and
+:func:`cross_check_online` hold the engine to the reference's oracles
+(``scheduler.run``'s per-core loops, ``online.run_online``) and to the
+referee, and :func:`schedule_all_cores` schedules a dataclass
+``Assignment`` through the engine.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
+from functools import partial
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.ops import coflow_assign
+from repro_torch.kernels.ref import assign_ref
 
-from .assignment import FlatAssignState, _host_f64, assign_fast
+from .assignment import (Assignment, FlatAssignState, _host_f64, assign_fast,
+                         assign_random, assign_rho_only, assign_tau_aware,
+                         assignment_from_choices)
+from .circuit_scheduler import (schedule_core_list, schedule_core_reserving,
+                                schedule_core_sunflow)
 from .coflow import Instance, OnlineInstance, extract_flows
-from .online import online_orders
+from .online import online_orders, run_online
 from .ordering import order_coflows
-from .scheduler import ALGORITHMS, Schedule
+from .scheduler import (ALGORITHMS, Schedule, _schedule_from_assignment,
+                        scheduled_flows)
+from .simulator import validate
 
 __all__ = ["ALGORITHMS", "BACKENDS", "FlowTable", "SCHEDULINGS",
-           "build_flow_table", "run_fast", "run_fast_metrics",
-           "run_fast_online"]
+           "build_flow_table", "schedule_all_cores", "run_fast",
+           "run_fast_metrics", "run_fast_online", "cross_check",
+           "cross_check_online"]
 
 #: Intra-core policies. ``sunflow`` is the coflow-at-a-time policy of the
 #: SUNFLOW-CORE baselines.
@@ -78,6 +93,19 @@ class FlowTable:
     fj: torch.Tensor    # egress port, int64
     core: torch.Tensor  # assigned core, int64
     size: torch.Tensor  # float64
+
+    @classmethod
+    def from_assignment(cls, assignment: Assignment) -> "FlowTable":
+        """The flows of a dataclass ``Assignment``, in its order, on its
+        instance's device."""
+        rows = [(af.flow.coflow, af.flow.cid, af.flow.i, af.flow.j, af.core,
+                 af.flow.size) for per in assignment.flows for af in per]
+        cols = list(zip(*rows)) or [()] * 6
+        dev = assignment.inst.device
+        ints = [torch.tensor(c, dtype=torch.int64, device=dev)
+                for c in cols[:5]]
+        return cls(*ints, size=torch.tensor(cols[5], dtype=torch.float64,
+                                             device=dev))
 
     @property
     def n_flows(self) -> int:
@@ -498,7 +526,8 @@ def _ccts_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
 
 def _schedule_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
                          t_est: torch.Tensor, srv: torch.Tensor,
-                         delta_f: torch.Tensor | None = None) -> Schedule:
+                         delta_f: torch.Tensor | None = None,
+                         assignment: Assignment | None = None) -> Schedule:
     """Rows in the reference's order: core-major, priority order within
     each core."""
     order = torch.argsort(table.core, stable=True)
@@ -510,7 +539,32 @@ def _schedule_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
                     size=table.size[order], t_establish=te, t_start=t_start,
                     t_complete=t_start + srv[order],
                     ccts=_ccts_from_times(inst, pi, table, t_est, srv,
-                                          delta_f))
+                                          delta_f),
+                    assignment=assignment)
+
+
+def schedule_all_cores(
+    inst: Instance,
+    pi: torch.Tensor,
+    assignment: Assignment,
+    scheduling: str = "work-conserving",
+    *,
+    releases: torch.Tensor | np.ndarray | None = None,
+) -> Schedule:
+    """Schedule every flow of a dataclass ``Assignment`` on all K cores in
+    one engine call.
+
+    The engine counterpart of ``scheduler._schedule_from_assignment``: the
+    same rows (core-major, priority order within a core) and establishment
+    times bit for bit, with ``assignment`` set, so the theory certificates
+    apply. ``releases`` selects the online semantics of
+    :func:`_times_for_table`.
+    """
+    pi = torch.as_tensor(pi, dtype=torch.int64, device=inst.device)
+    table = FlowTable.from_assignment(assignment)
+    t_est, srv = _times_for_table(inst, pi, table, scheduling, releases)
+    return _schedule_from_times(inst, pi, table, t_est, srv,
+                                assignment=assignment)
 
 
 def _normalize_delta_k(inst: Instance, delta_k: torch.Tensor | np.ndarray | None,
@@ -637,3 +691,225 @@ def run_fast_online(
                                   releases=rel, delta_k=delta_k)
     return _schedule_from_times(inst, arrival, table, t_est, srv,
                                 _delta_f(inst, table, delta_k))
+
+
+# --------------------------------------------------------------------------
+# Differential gates: the engine against the reference's oracles.
+# --------------------------------------------------------------------------
+
+def _oracle_assignment(inst: Instance, pi: torch.Tensor, policy: str,
+                       seed: int) -> Assignment:
+    if policy == "tau-aware":
+        return assign_tau_aware(inst, pi)
+    if policy == "rho-only":
+        return assign_rho_only(inst, pi)
+    return assign_random(inst, pi, seed=seed)
+
+
+#: Maximum kernel/``assign_ref`` choice-disagreement rate the kernel gate
+#: accepts: the fp32 precision contract of the reference's kernel. One
+#: tie-break divergence is always allowed (on a tiny instance one expected
+#: flip would otherwise blow the rate); an algorithmic error lands near a
+#: 1 - 1/K disagreement rate, far above this.
+_PALLAS_DIVERGENCE_CEILING = 0.03
+
+
+def _kernel_divergence(inst: Instance, flows: tuple[torch.Tensor, ...],
+                       choices: torch.Tensor) -> tuple[int, int]:
+    """``(diverged, allowed)``: how many of the kernel's ``choices`` differ
+    from ``kernels.ref.assign_ref`` evaluated at the kernel's fp32-cast
+    inputs (fp64 state), and the allowance ``max(1, ceil(0.03 * F))``."""
+    _pos, _cid, fi, fj, sizes = flows
+    ref_c, _ = assign_ref(fi.cpu().numpy(), fj.cpu().numpy(),
+                          sizes.cpu().numpy().astype(np.float32),
+                          inst.rates.cpu().numpy().astype(np.float32),
+                          float(np.float32(inst.delta)), inst.N)
+    diverged = int((choices.cpu().numpy() != ref_c.astype(np.int64)).sum())
+    allowed = max(1, int(np.ceil(_PALLAS_DIVERGENCE_CEILING * ref_c.size)))
+    return diverged, allowed
+
+
+def _choices_of(s: Schedule, pi: torch.Tensor,
+                flows: tuple[torch.Tensor, ...], what: str) -> torch.Tensor:
+    """The core of each flow of ``flows`` (``extract_flows(inst, pi)``) in
+    schedule ``s``: rows are keyed by ``(pos, i, j)``, one flow each."""
+    if not torch.equal(s.pi, pi):
+        raise AssertionError(f"engine/oracle orders differ {what}")
+    pos, _cid, fi, fj, _size = flows
+    N = s.inst.N
+    key_s = (s.pos * N + s.fi) * N + s.fj
+    key_f = (pos * N + fi) * N + fj
+    order = torch.argsort(key_s)
+    idx = torch.searchsorted(key_s[order], key_f).clamp_max(
+        max(key_s.numel() - 1, 0))
+    rows = order[idx]
+    if key_s.numel() != key_f.numel() or not torch.equal(key_s[rows], key_f):
+        raise AssertionError(f"engine/oracle flow sets differ {what}")
+    return s.core[rows]
+
+
+def _gate_choices(
+    inst: Instance,
+    pi: torch.Tensor,
+    policy: str,
+    seed: int,
+    backend: str,
+    fast: Schedule,
+    what: str,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, Assignment | None]:
+    """The assignment phase's differential gate.
+
+    Returns ``(flows, choices, oracle assignment)``: the flows of
+    ``extract_flows(inst, pi)``, their core choices, and the dataclass
+    oracle's ``Assignment`` (``None`` on the kernel path).
+
+    ``numpy`` backend: ``assign_fast``'s choices must equal the dataclass
+    oracle's bit for bit, and for the tau-aware policy also
+    ``kernels.ref.assign_ref``'s (three implementations in lock-step).
+    ``kernel`` backend (tau-aware): the choices are the engine schedule
+    ``fast``'s own, read back from its rows, so the gate adds no kernel
+    launch; they are held to ``assign_ref`` at the kernel's fp32-cast
+    inputs, and under the kernel's fp32 contract up to ``max(1, ceil(0.03
+    * F))`` may diverge.
+    """
+    flows = extract_flows(inst, pi)
+    if backend == "kernel" and policy == "tau-aware":
+        choices = _choices_of(fast, pi, flows, what)
+        diverged, allowed = _kernel_divergence(inst, flows, choices)
+        if diverged > allowed:
+            raise AssertionError(
+                f"kernel/assign_ref diverge on {diverged}/{choices.numel()} "
+                f"choices — beyond the precision-contract allowance "
+                f"({allowed})")
+        return flows, choices, None
+    oracle_a = _oracle_assignment(inst, pi, policy, seed)
+    oracle_choices = np.array(
+        [af.core for per in oracle_a.flows for af in per], dtype=np.int64)
+    choices = assign_fast(inst, pi, policy, seed=seed, flows=flows)
+    got = choices.cpu().numpy()
+    if not np.array_equal(got, oracle_choices):
+        bad = int(np.argmax(got != oracle_choices))
+        raise AssertionError(
+            f"assign_fast/{policy} choice mismatch with the dataclass oracle "
+            f"at flow {bad}: {got[bad]} vs {oracle_choices[bad]}")
+    if policy == "tau-aware":
+        _pos, _cid, fi, fj, sizes = flows
+        ref_c, _ = assign_ref(fi.cpu().numpy(), fj.cpu().numpy(),
+                              sizes.cpu().numpy(), _host_f64(inst.rates),
+                              inst.delta, inst.N)
+        if not np.array_equal(got, ref_c.astype(np.int64)):
+            bad = int(np.argmax(got != ref_c))
+            raise AssertionError(
+                f"assign_fast/assign_ref choice mismatch at flow {bad}: "
+                f"{got[bad]} vs {ref_c[bad]}")
+    return flows, choices, oracle_a
+
+
+def _assert_agree(fast: Schedule, oracle: Schedule, atol: float, what: str,
+                  label: str) -> None:
+    """CCTs within ``atol``, the same flow set keyed by ``(core, coflow, i,
+    j, size)``, and each key's ``t_establish`` within ``atol``."""
+    fc, oc = fast.ccts.cpu().numpy(), oracle.ccts.cpu().numpy()
+    if not np.allclose(fc, oc, atol=atol, rtol=0.0):
+        worst = int(np.argmax(np.abs(fc - oc)))
+        raise AssertionError(
+            f"{label} CCT mismatch {what}: coflow {worst}: "
+            f"engine={fc[worst]!r} oracle={oc[worst]!r}")
+    key = lambda f: (f.core, f.coflow, f.i, f.j, f.size)  # noqa: E731
+    fast_t = {key(f): f.t_establish for f in scheduled_flows(fast)}
+    oracle_t = {key(f): f.t_establish for f in scheduled_flows(oracle)}
+    if set(fast_t) != set(oracle_t):
+        raise AssertionError(f"{label} flow sets differ {what}")
+    for kf, te in fast_t.items():
+        if abs(te - oracle_t[kf]) > atol:
+            raise AssertionError(
+                f"{label} t_establish mismatch at {kf}: "
+                f"{te!r} vs {oracle_t[kf]!r}")
+
+
+def cross_check(
+    inst: Instance,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    scheduling: str = "work-conserving",
+    atol: float = 1e-6,
+    fast: Schedule | None = None,
+    backend: str = "numpy",
+) -> Schedule:
+    """Differential gate: the engine vs the reference's oracle vs the
+    referee.
+
+    Runs :func:`run_fast` (unless given its schedule ``fast`` for the same
+    arguments), holds its assignment to the oracles (``_gate_choices``),
+    replays the gate's assignment through the per-core oracle loops
+    (``scheduler._schedule_from_assignment``, what ``scheduler.run``
+    dispatches to), asserts per-coflow CCT and per-flow establishment-time
+    agreement within ``atol`` (in practice exact), then runs
+    ``simulator.validate`` on the engine's schedule, on its device. Returns
+    the engine's schedule.
+
+    ``backend="kernel"``: the replay schedules the engine's own kernel
+    choices (the kernel's fp32 tie-breaks may differ from the fp64 oracle's),
+    so the comparison isolates the scheduling phase; the only kernel launch
+    is ``run_fast``'s, none when ``fast`` is given.
+    """
+    if fast is None:
+        fast = run_fast(inst, algorithm, seed=seed, scheduling=scheduling,
+                        backend=backend)
+    what = f"({algorithm}, {scheduling})"
+    pi = order_coflows(inst)
+    policy, sched_eff = _resolve_algorithm(algorithm, scheduling)
+    flows, choices, oracle_a = _gate_choices(inst, pi, policy, seed, backend,
+                                             fast, what)
+    percore = {
+        "work-conserving": schedule_core_list,
+        "priority-guard": partial(schedule_core_list, guard=True),
+        "reserving": schedule_core_reserving,
+        "sunflow": schedule_core_sunflow,
+    }[sched_eff]
+    if oracle_a is None:  # kernel path: replay the engine's own choices
+        oracle_a = assignment_from_choices(inst, pi, flows, choices)
+    legacy = _schedule_from_assignment(inst, pi, oracle_a, percore)
+    _assert_agree(fast, legacy, atol, what, "engine/oracle")
+    validate(fast)
+    return fast
+
+
+def cross_check_online(
+    oinst: OnlineInstance,
+    algorithm: str = "ours",
+    *,
+    seed: int = 0,
+    scheduling: str = "work-conserving",
+    atol: float = 1e-6,
+    fast: Schedule | None = None,
+    backend: str = "numpy",
+) -> Schedule:
+    """Online differential gate: :func:`run_fast_online` vs the
+    ``online.run_online`` oracle vs the release-respecting referee.
+
+    The arrival-order assignment is gated as in :func:`cross_check`; the
+    oracle runs through ``run_online(assignment=...)``, its scheduling
+    machinery (WSPT ordering, release gating, per-core loops) in full, fed
+    the gate's assignment (``backend="kernel"``: the engine's own kernel
+    choices). CCTs and establishment times must agree within ``atol``, then
+    ``validate(fast, releases=)`` runs on the engine's schedule. Returns the
+    engine's schedule.
+    """
+    if fast is None:
+        fast = run_fast_online(oinst, algorithm, seed=seed,
+                               scheduling=scheduling, backend=backend)
+    what = f"({algorithm}, {scheduling})"
+    inst = oinst.inst
+    arrival, _ = online_orders(inst, oinst.releases)
+    policy, _sched_eff = _resolve_algorithm(algorithm, scheduling)
+    flows, choices, oracle_a = _gate_choices(inst, arrival, policy, seed,
+                                             backend, fast, what)
+    if oracle_a is None:  # kernel path: replay the engine's own choices
+        oracle_a = assignment_from_choices(inst, arrival, flows, choices)
+    oracle = run_online(oinst, algorithm, seed=seed, scheduling=scheduling,
+                        assignment=oracle_a)
+    _assert_agree(fast, oracle, atol, what, "online engine/oracle")
+    validate(fast, releases=oinst.releases)
+    return fast

@@ -14,6 +14,9 @@
                      ``csrc/flash_attention_sm90.cu`` (TMA + wgmma), fp32 in
                      ``csrc/flash_attention.cu`` (CUDA cores).
 
+``ref.assign_ref`` is the assignment's fp64 host oracle (numpy), the
+third implementation of ``core.engine.cross_check``'s assignment gate.
+
 The public entry points are in ``ops`` (``ops.coflow_assign``,
 ``ops.flash_attention``); each kernel's
 module holds its wrapper, its plain version and its launch count. The CUDA

@@ -1,7 +1,6 @@
 """Observability plane of the port: phase tracing and metrics.
 
-The port's copy of ``repro.obs`` (``clock``, ``metrics``, ``trace``; the
-reference's trace/bench CLI is not ported yet):
+The port's copy of ``repro.obs``:
 
 - :mod:`repro_torch.obs.clock` -- the one wall-clock read of the
   scheduling and service code;
@@ -9,7 +8,10 @@ reference's trace/bench CLI is not ported yet):
   ``current_tracer``/``set_tracer``), JSONL + Chrome-trace export, in the
   reference's schema;
 - :mod:`repro_torch.obs.metrics` -- ``MetricsRegistry`` with counters,
-  gauges and windowed histograms.
+  gauges and windowed histograms;
+- ``python -m repro_torch.obs`` -- summarize/validate/diff traces and
+  ``BENCH_*.json`` artifacts (:mod:`repro_torch.obs.cli`), the reference's
+  CLI.
 
 Stdlib and numpy only. Tracing off leaves every schedule bit-identical.
 """

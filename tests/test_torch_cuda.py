@@ -196,6 +196,44 @@ def test_host_backend_runs_launch_no_kernel(dev, kw):
     assert ca.launches_by_kernel == before
 
 
+@pytest.mark.parametrize("online", [False, True])
+def test_cross_check_on_the_card_launches_the_chain_kernel_once(dev, online):
+    """The kernel gate reads the engine's own choices: one launch, through
+    ``run_fast*``; the checked schedule equals the CPU's, and the oracle
+    grid point given it launches nothing more."""
+    runs = {d: _small_online(d) for d in (dev, "cpu")}
+    gate = port.cross_check_online if online else port.cross_check
+    arg = {d: runs[d] if online else runs[d].inst for d in runs}
+    before = dict(ca.launches_by_kernel)
+    gpu = gate(arg[dev], "ours", backend="kernel")
+    assert ca.launches_by_kernel == {
+        **before, "chain_sm90": before["chain_sm90"] + 1}
+    gate(arg[dev], "ours", backend="kernel", fast=gpu)
+    assert ca.launches_by_kernel["chain_sm90"] == before["chain_sm90"] + 1
+    cpu = gate(arg["cpu"], "ours", backend="kernel")
+    for name in ("pi", "core", "t_establish", "ccts"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    tab = port.run_batch([arg[dev]], ("ours", "rho-assign"), seeds=(3,),
+                         check="oracle", backend="kernel")
+    assert ca.launches_by_kernel["chain_sm90"] == before["chain_sm90"] + 2
+    assert tab.rows[0].weighted_cct == port.weighted_cct(gpu)
+
+
+def test_certificates_on_the_card_equal_the_cpu_run(dev):
+    runs = {d: _small_online(d).inst for d in (dev, "cpu")}
+    s = {d: port.run(runs[d], "ours") for d in runs}
+    assert s[dev].ccts.device.type == "cuda"
+    for fn in (port.check_lemma1, port.check_lemma2, port.check_theorem1,
+               lambda x: port.check_lemma3(x, strict=False),
+               lambda x: port.check_theorem2(x, strict=False)):
+        got, want = fn(s[dev]), fn(s["cpu"])
+        for key in want:
+            if torch.is_tensor(want[key]):
+                assert torch.equal(got[key].cpu(), want[key])
+            else:
+                assert got[key] == want[key]
+
+
 POINTS = [(a, s) for a in port.ALGORITHMS
           for s in (("sunflow",) if "sunflow" in a else
                     ("work-conserving", "priority-guard", "reserving"))]

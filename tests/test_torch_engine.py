@@ -175,10 +175,12 @@ def test_validate_raises_on_lost_demand_and_wrong_cct():
 
 def test_unported_options_raise_and_unknown_inputs_are_rejected():
     """What stays unported names its ROADMAP entry; bad inputs raise
-    ``ValueError`` as in the reference."""
+    ``ValueError`` as in the reference. ``check="oracle"`` (item 8) is
+    ported: it runs and gives the rows of ``check="validate"``."""
     p = to_port(INSTANCES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        port.run_batch([p], check="oracle")
+    oracle = port.run_batch([p], check="oracle")
+    plain = port.run_batch([p], check="validate")
+    assert [r.weighted_cct for r in oracle] == [r.weighted_cct for r in plain]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
         port.run_batch([p], workers=2)
     with pytest.raises(ValueError, match="unknown algorithm"):

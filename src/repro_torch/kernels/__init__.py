@@ -8,9 +8,10 @@
                      registers), 9 <= K <= 32 in ``csrc/coflow_assign.cu``
                      (one warp, lane k owns core k). ``hazards`` makes the
                      flow streams they are tested on.
-  flash_attention  — blocked causal/local GQA self-attention forward;
-                     replaces the Pallas kernel ``_fa_kernel``. Two CUDA C++
-                     kernels chosen by dtype: bf16 in
+  flash_attention  — blocked causal/local GQA attention forward (Sq and
+                     Sk may differ; Dh 64, 128 or 256); replaces the Pallas
+                     kernel ``_fa_kernel``. Two CUDA C++ kernels chosen by
+                     dtype: bf16 in
                      ``csrc/flash_attention_sm90.cu`` (TMA + wgmma), fp32 in
                      ``csrc/flash_attention.cu`` (CUDA cores).
 

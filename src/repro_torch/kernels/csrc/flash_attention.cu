@@ -7,12 +7,16 @@
 // flash_attention_sm90.cu. For every batch row b and query head h it computes
 //   o[b, :, h] = softmax(scale * q[b, :, h] . k[b, :, h / group]^T + mask)
 //                . v[b, :, h / group]
-// with positions implicitly 0..S-1 for both q and k (self-attention), a
-// causal mask (kp <= qp) and/or a sliding window (kp > qp - window). As in
-// the Pallas kernel: q is pre-scaled; the softmax is the fp32 online
-// softmax (m, l, acc) over kv blocks; masked scores take the finite value
-// -0.7 * FLT_MAX; kv blocks that are wholly masked for the whole q block
-// are skipped; rows with l == 0 give 0.
+// with positions implicitly 0..Sq-1 for q and 0..Sk-1 for k (Sq and Sk may
+// differ; the causal mask is then aligned top-left, as in the Pallas
+// kernel), a causal mask (kp <= qp) and/or a sliding window
+// (kp > qp - window). As in the Pallas kernel: q is pre-scaled; the
+// softmax is the fp32 online softmax (m, l, acc) over kv blocks; masked
+// scores take the finite value -0.7 * FLT_MAX; kv blocks that are wholly
+// masked for the whole q block are skipped; rows with l == 0 give 0. So a
+// row with no visible key at all (possible only with Sq > Sk and a window)
+// gives what the Pallas kernel gives there, which depends on its blocks:
+// such rows are outside the contract.
 //
 // What bounds it on an H100: operations, and here the fp32 ones. fp32
 // inputs must meet the reference's 1e-5, which rules out TF32, and wgmma
@@ -31,8 +35,10 @@
 // with the bitwise same value). P goes through shared memory to the P.V
 // product. Rows are padded by 4 floats so that the 16-byte reads of the
 // products hit distinct banks. Reads of q, k and v follow the strides the
-// caller passes, so no transpose precedes the kernel; S need not be a
-// multiple of 64 (rows past S are zero-filled and keys past S get p = 0).
+// caller passes, so no transpose precedes the kernel; Sq and Sk need not be
+// multiples of 64 (rows past Sq and keys past Sk are zero-filled, keys
+// past Sk get p = 0). At Dh=256 the three tiles and P take 217 KB of
+// shared memory, so one CTA fits an SM and may use up to 255 registers.
 // The q blocks are issued last-first, so under a causal mask the longest
 // CTAs start first.
 //
@@ -62,7 +68,7 @@ struct Params {
   const void* v;
   void* o;
   Strides qs, ks, vs, os;
-  int seq;
+  int seq_q, seq_k;
   int group;
   float scale;
   int causal;
@@ -87,7 +93,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* base,
 }
 
 template <int kDh>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kDh > 128 ? 1 : 2)
     flash_attention_kernel(const Params p) {
   constexpr int kLd = kDh + kPad;     // row stride of Qs, Ks, Vs (floats)
   constexpr int kLdP = kBlockK + kPad;  // row stride of Ps
@@ -106,20 +112,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = blockIdx.z;
   const int kvh = h / p.group;
   const int q0 = qb * kBlockQ;
-  const int seq = p.seq;
+  const int seq_q = p.seq_q;
+  const int seq_k = p.seq_k;
 
   const float* qbase = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
   const float* kbase = static_cast<const float*>(p.k) + b * p.ks.b + kvh * p.ks.h;
   const float* vbase = static_cast<const float*>(p.v) + b * p.vs.b + kvh * p.vs.h;
   float* obase = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
 
-  stage_tile<kDh>(Qs, qbase, p.qs, q0, seq, p.scale);
+  stage_tile<kDh>(Qs, qbase, p.qs, q0, seq_q, p.scale);
 
   // Visible kv blocks: none wholly in the future of the q block's last row
   // (causal), none wholly before its first row's window.
   int kb_lo = 0;
-  int kb_hi = (seq + kBlockK - 1) / kBlockK - 1;
-  if (p.causal) kb_hi = min(kb_hi, (min(q0 + kBlockQ, seq) - 1) / kBlockK);
+  int kb_hi = (seq_k + kBlockK - 1) / kBlockK - 1;
+  if (p.causal) kb_hi = min(kb_hi, (min(q0 + kBlockQ, seq_q) - 1) / kBlockK);
   if (p.window > 0) {
     // visible iff kb * 64 + 63 > q0 - window
     const int lo_pos = q0 - p.window - kBlockK + 2;
@@ -138,8 +145,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kb = kb_lo; kb <= kb_hi; ++kb) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // the last block's readers of Ks, Vs, Ps are done
-    stage_tile<kDh>(Ks, kbase, p.ks, k0, seq, 1.0f);
-    stage_tile<kDh>(Vs, vbase, p.vs, k0, seq, 1.0f);
+    stage_tile<kDh>(Ks, kbase, p.ks, k0, seq_k, 1.0f);
+    stage_tile<kDh>(Vs, vbase, p.vs, k0, seq_k, 1.0f);
     __syncthreads();
 
     // s = (q * scale) . k^T for 4 rows x 4 columns
@@ -179,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         bool vis = true;
         if (p.causal) vis = vis && kp <= qp;
         if (p.window > 0) vis = vis && kp > qp - p.window;
-        if (!vis || kp >= seq) s[i][j] = kNegInf;
+        if (!vis || kp >= seq_k) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -190,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        const float pj = kp < seq ? expf(s[i][j] - m_new) : 0.0f;
+        const float pj = kp < seq_k ? expf(s[i][j] - m_new) : 0.0f;
         rsum += pj;
         Ps[(ty * 4 + i) * kLdP + tx + 16 * j] = pj;
       }
@@ -237,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     const float safe = l_run[i] == 0.0f ? 1.0f : l_run[i];
 #pragma unroll
     for (int g = 0; g < kDh / 64; ++g)
@@ -265,14 +272,15 @@ int launch(const Params& p, int n_qblk, int n_heads, int batch,
 
 }  // namespace
 
-// Launches the kernel on `stream` for float32 q, k, v and returns
-// cudaGetLastError(), or -1 for a head_dim the kernel is not built for. `strides` holds 16 element strides:
-// (b, s, h, d) of q, k, v and o in that order. `o` is written, never read.
+// Launches the kernel on `stream` for float32 q (B, Sq, H, Dh) and k, v
+// (B, Sk, KVH, Dh) and returns cudaGetLastError(), or -1 for a head_dim the
+// kernel is not built for. `strides` holds 16 element strides: (b, s, h, d)
+// of q, k, v and o in that order. `o` is written, never read.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int batch,
-                                      int seq, int n_heads, int n_kv_heads,
-                                      int head_dim, float scale,
+                                      int seq_q, int seq_k, int n_heads,
+                                      int n_kv_heads, int head_dim, float scale,
                                       int causal, int window,
                                       cudaStream_t stream) {
   Params p;
@@ -287,13 +295,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     dst[t]->h = strides[4 * t + 2];
     dst[t]->d = strides[4 * t + 3];
   }
-  p.seq = seq;
+  p.seq_q = seq_q;
+  p.seq_k = seq_k;
   p.group = n_heads / n_kv_heads;
   p.scale = scale;
   p.causal = causal;
   p.window = window;
-  const int n_qblk = (seq + kBlockQ - 1) / kBlockQ;
+  const int n_qblk = (seq_q + kBlockQ - 1) / kBlockQ;
   if (head_dim == 64) return launch<64>(p, n_qblk, n_heads, batch, stream);
   if (head_dim == 128) return launch<128>(p, n_qblk, n_heads, batch, stream);
+  if (head_dim == 256) return launch<256>(p, n_qblk, n_heads, batch, stream);
   return -1;
 }

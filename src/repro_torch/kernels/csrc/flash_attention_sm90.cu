@@ -6,8 +6,11 @@
 // flash_attention.cu. For every batch row b and query head h it computes
 //   o[b, :, h] = softmax(scale * q[b, :, h] . k[b, :, h / group]^T + mask)
 //                . v[b, :, h / group]
-// with positions implicitly 0..S-1 for both q and k (self-attention), a
-// causal mask (kp <= qp) and/or a sliding window (kp > qp - window).
+// with positions implicitly 0..Sq-1 for q and 0..Sk-1 for k (Sq and Sk may
+// differ: cross-attention, or a query block against a longer key run), a
+// causal mask (kp <= qp, both counted from 0, so with Sq != Sk the mask is
+// aligned top-left as in the Pallas kernel) and/or a sliding window
+// (kp > qp - window). A row with no visible key gives 0.
 //
 // What bounds it on an H100: operations. At the TinyLlama prefill shape
 // (B=8, S=2048, H=32, KVH=4, Dh=64, causal) the two products need 1.374e11
@@ -20,11 +23,17 @@
 // Design: one CTA of 384 threads per (q tile of 128 rows, head, batch row).
 // Warpgroups 0 and 1 are consumers, each owning 64 q rows; warpgroup 2 is
 // the producer, of which one thread issues every TMA load: the CTA's Q tile
-// once, then K and V tiles of 128 rows into a ring of 2 stages, each stage
+// once, then K and V tiles of BK rows into a ring of 2 stages, each stage
 // completing on a `full` mbarrier and released by the consumers on an
 // `empty` one. Tiles are 128-byte rows under the 128B swizzle; a Dh=128
-// tile is two 64-column panels. For each kv tile a consumer warpgroup runs
-//   S = Q.K^T   wgmma m64n128k16, A and B from shared memory, K-major;
+// tile is two 64-column panels, a Dh=256 tile four. BK is 128 for Dh 64
+// and 128. At Dh=256 it is 64: the Q tile alone takes 64 KB, and two
+// stages of 128-row K and V tiles would take 256 KB more, past the 227 KB
+// a CTA may use; with 64-row tiles the CTA takes 192 KB. The registers
+// then hold O as 4 panels of 64 x 64 fp32 (128 a thread) beside S at
+// 64 x 64 (32 a thread), inside the consumers' 240.
+// For each kv tile a consumer warpgroup runs
+//   S = Q.K^T   wgmma m64n{BK}k16, A and B from shared memory, K-major;
 //   scale S in fp32 (log2(e) folded in), mask only on boundary tiles, the
 //   fp32 online softmax (m, l, acc) with exp2f;
 //   P -> bf16 in registers (the fp32 accumulator layout of S, packed in
@@ -35,8 +44,9 @@
 //
 // Schedule, as in the Pallas kernel: kv tiles wholly masked by the causal
 // or window bound are never loaded; the elementwise mask runs only on
-// boundary tiles (the diagonal, the window's lower edge, keys past S).
-// Rows and keys past S are zero-filled by TMA and keys past S get p = 0.
+// boundary tiles (the diagonal, the window's lower edge, keys past Sk).
+// Rows past Sq and keys past Sk are zero-filled by TMA, keys past Sk get
+// p = 0 and rows past Sq are not stored.
 // q tiles are issued last-first (the slowest grid dimension), so under a
 // causal mask the longest CTAs start first. The tensor maps are 4-D over
 // (Dh, and B, S, H ordered by stride) with the caller's strides, so the
@@ -54,13 +64,14 @@
 namespace {
 
 constexpr int kBlockQ = 128;   // q rows per CTA (two warpgroups of 64)
-constexpr int kBlockK = 128;   // kv rows per tile
+constexpr int kBlockK = 128;   // kv rows per tile at Dh 64 and 128
 constexpr int kStages = 2;
 constexpr int kThreads = 384;  // 2 consumer warpgroups + 1 producer
 constexpr int kConsumers = 256;
 constexpr uint32_t kRowBytes = 128;  // one swizzled row: 64 bf16
-// The Q tile and the K/V tiles share one tensor-map box of kBlockK rows.
-static_assert(kBlockQ == kBlockK, "one box shape serves Q and K/V");
+
+// kv rows per tile at head dim `dh` (see the design note).
+__host__ __device__ constexpr int block_k(int dh) { return dh > 128 ? 64 : kBlockK; }
 
 // Where each of the three outer dimensions sits in a tensor map (1..3).
 struct MapPos {
@@ -71,7 +82,7 @@ struct Params {
   __nv_bfloat16* o;
   long long os_b, os_s, os_h;  // element strides of o
   MapPos qpos, kpos, vpos;
-  int seq;
+  int seq_q, seq_k;
   int group;
   float scale_log2;  // softmax scale * log2(e)
   int causal;
@@ -197,6 +208,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[0..32) += A(smem, 64 x 16) . B(smem, 16 x 64); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[0..32) += A(registers, 64 x 16 bf16) . B(smem, 16 x 64, MN-major).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
@@ -231,8 +264,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tv,
                                 const Params p) {
   constexpr int kPanels = kDh / 64;
+  constexpr int kBK = block_k(kDh);
   constexpr uint32_t kPanelQ = kBlockQ * kRowBytes;
-  constexpr uint32_t kPanelK = kBlockK * kRowBytes;
+  constexpr uint32_t kPanelK = kBK * kRowBytes;
   constexpr uint32_t kQBytes = kPanels * kPanelQ;
   constexpr uint32_t kKBytes = kPanels * kPanelK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -248,20 +282,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;
-  const int seq = p.seq;
+  const int seq_q = p.seq_q;
+  const int seq_k = p.seq_k;
   const int kvh = h / p.group;
 
   // Visible kv tiles: none wholly in the future of the tile's last row
-  // (causal), none wholly before its first row's window.
+  // (causal), none wholly before its first row's window. With Sq > Sk and a
+  // window, a tile may see none at all.
   int kb_lo = 0;
-  int kb_hi = (seq + kBlockK - 1) / kBlockK - 1;
-  if (p.causal) kb_hi = min(kb_hi, (min(q0 + kBlockQ, seq) - 1) / kBlockK);
+  int kb_hi = (seq_k + kBK - 1) / kBK - 1;
+  if (p.causal) kb_hi = min(kb_hi, (min(q0 + kBlockQ, seq_q) - 1) / kBK);
   if (p.window > 0) {
-    // visible iff kb * 128 + 127 > q0 - window
-    const int lo_pos = q0 - p.window - kBlockK + 2;
-    if (lo_pos > 0) kb_lo = (lo_pos + kBlockK - 1) / kBlockK;
+    // visible iff kb * BK + BK - 1 > q0 - window
+    const int lo_pos = q0 - p.window - kBK + 2;
+    if (lo_pos > 0) kb_lo = (lo_pos + kBK - 1) / kBK;
   }
-  const int n_tiles = kb_hi - kb_lo + 1;
+  const int n_tiles = max(kb_hi - kb_lo + 1, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -285,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int it = 0; it < n_tiles; ++it) {
         const int stage = it % kStages;
         mbar_wait(empty_bar + 8 * stage, ((it / kStages) & 1) ^ 1);
-        const int k0 = (kb_lo + it) * kBlockK;
+        const int k0 = (kb_lo + it) * kBK;
         const uint32_t sk = skv + stage * 2 * kKBytes;
         const uint32_t bar = full_bar + 8 * stage;
         mbar_expect_tx(bar, 2 * kKBytes);
@@ -325,22 +361,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(q_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it % kStages;
-      const int k0 = (kb_lo + it) * kBlockK;
+      const int k0 = (kb_lo + it) * kBK;
       const uint32_t sk = skv + stage * 2 * kKBytes;
       const uint32_t sv = sk + kKBytes;
       mbar_wait(full_bar + 8 * stage, (it / kStages) & 1);
 
-      // S = Q . K^T (64 x 128, fp32)
-      float s[64];
+      // S = Q . K^T (64 x BK, fp32)
+      float s[kBK / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+      for (int i = 0; i < kBK / 2; ++i) s[i] = 0.0f;
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDh / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;
-        wgmma_m64n128k16_ss(s, kmajor_desc(sq_wg + (kk / 4) * kPanelQ + col),
-                            kmajor_desc(sk + (kk / 4) * kPanelK + col), kk > 0);
+        const uint64_t da = kmajor_desc(sq_wg + (kk / 4) * kPanelQ + col);
+        const uint64_t db = kmajor_desc(sk + (kk / 4) * kPanelK + col);
+        if constexpr (kBK == 128) wgmma_m64n128k16_ss(s, da, db, kk > 0);
+        else wgmma_m64n64k16_ss(s, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -348,18 +386,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // scale, mask on boundary tiles, online softmax
       const bool boundary =
-          k0 + kBlockK > seq || (p.causal && k0 + kBlockK - 1 > q0) ||
+          k0 + kBK > seq_k || (p.causal && k0 + kBK - 1 > q0) ||
           (p.window > 0 && k0 <= q0 + kBlockQ - 1 - p.window);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[4 * j + e] * c;
           if (boundary) {
             const int kp = k0 + 8 * j + cb + (e & 1);
             const int qp = e < 2 ? qp0 : qp1;
-            bool vis = kp < seq;
+            bool vis = kp < seq_k;
             if (p.causal) vis = vis && kp <= qp;
             if (p.window > 0) vis = vis && kp > qp - p.window;
             if (!vis) x = -INFINITY;
@@ -384,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m1 = mn1;
       float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
         s[4 * j + 0] = exp2f(s[4 * j + 0] - mu0);
         s[4 * j + 1] = exp2f(s[4 * j + 1] - mu0);
         s[4 * j + 2] = exp2f(s[4 * j + 2] - mu1);
@@ -403,10 +441,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           o[g][4 * j + 2] *= alpha1;
           o[g][4 * j + 3] *= alpha1;
         }
-      // P in bf16, as the A fragments of the 8 k-steps of P.V
-      uint32_t pa[8][4];
+      // P in bf16, as the A fragments of the BK / 16 k-steps of P.V
+      uint32_t pa[kBK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kBK / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -415,12 +453,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // O += P . V
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+      for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(pa[kk]);
 #pragma unroll
       for (int g = 0; g < kPanels; ++g) fence_regs(o[g]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
         for (int g = 0; g < kPanels; ++g)
           wgmma_m64n64k16_rs(o[g], pa[kk],
@@ -432,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty_bar + 8 * stage);
     }
 
-    // O / l; rows with l == 0 give 0; rows at or past S are not stored
+    // O / l; rows with l == 0 give 0; rows at or past Sq are not stored
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -445,10 +483,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * g + 8 * j + cb;
-        if (qp0 < seq)
+        if (qp0 < seq_q)
           *reinterpret_cast<__nv_bfloat162*>(obase + qp0 * p.os_s + col) =
               __floats2bfloat162_rn(o[g][4 * j + 0] * inv0, o[g][4 * j + 1] * inv0);
-        if (qp1 < seq)
+        if (qp1 < seq_q)
           *reinterpret_cast<__nv_bfloat162*>(obase + qp1 * p.os_s + col) =
               __floats2bfloat162_rn(o[g][4 * j + 2] * inv1, o[g][4 * j + 3] * inv1);
       }
@@ -483,11 +521,11 @@ EncodeTiled encode_fn() {
 
 // A 4-D map over (Dh, then B, S, H in increasing stride) of a bf16 tensor
 // with element strides st = (b, s, h, d), d == 1, and a box of 64 columns
-// by kBlockK rows. A dimension of extent 1 gets the largest stride, so its
+// by `rows` rows. A dimension of extent 1 gets the largest stride, so its
 // stride (never walked) may be anything.
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                   const long long* st, int batch, int seq, int heads, int dh,
-                  MapPos* pos) {
+                  int rows, MapPos* pos) {
   long long ext[3] = {batch, seq, heads};
   long long str[3] = {st[0], st[1], st[2]};
   long long top = dh;
@@ -514,7 +552,7 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
     if (dim == 0) pos->b = i + 1;
     if (dim == 1) {
       pos->s = i + 1;
-      box[i + 1] = kBlockK;
+      box[i + 1] = static_cast<cuuint32_t>(rows);
     }
     if (dim == 2) pos->h = i + 1;
   }
@@ -527,7 +565,7 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 // Dynamic shared memory of one CTA: the Q tile, the K/V ring, the
 // barriers, and the slack that aligns the tiles to 1024 bytes.
 constexpr int smem_bytes(int dh) {
-  return (dh / 64) * (kBlockQ + 2 * kStages * kBlockK) * static_cast<int>(kRowBytes) +
+  return (dh / 64) * (kBlockQ + 2 * kStages * block_k(dh)) * static_cast<int>(kRowBytes) +
          8 * (1 + 2 * kStages) + 1024;
 }
 
@@ -540,7 +578,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
       flash_attention_kernel_sm90<kDh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (p.seq + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (p.seq_q + kBlockQ - 1) / kBlockQ;
   flash_attention_kernel_sm90<kDh>
       <<<dim3(n_heads, batch, n_qt), kThreads, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
@@ -551,11 +589,18 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // The dynamic shared memory a launch requests for `head_dim` (0 if the
 // kernel is not built for it).
 extern "C" int flash_attention_sm90_smem_bytes(int head_dim) {
-  return head_dim == 64 || head_dim == 128 ? smem_bytes(head_dim) : 0;
+  return head_dim == 64 || head_dim == 128 || head_dim == 256 ? smem_bytes(head_dim)
+                                                               : 0;
 }
 
-// Launches the kernel on `stream` for bf16 q, k, v and returns
-// cudaGetLastError(); -1 for a head_dim the kernel is not built for, -2 if
+// The kv rows of one K or V tile at `head_dim` (0 if not built for it).
+extern "C" int flash_attention_sm90_block_k(int head_dim) {
+  return head_dim == 64 || head_dim == 128 || head_dim == 256 ? block_k(head_dim) : 0;
+}
+
+// Launches the kernel on `stream` for bf16 q (B, Sq, H, Dh) and k, v
+// (B, Sk, KVH, Dh) and returns cudaGetLastError(); -1 for a head_dim the
+// kernel is not built for, -2 if
 // libcuda offers no cuTensorMapEncodeTiled, -(1000 + CUresult) if a
 // tensor map is refused. `strides` holds 16 element strides: (b, s, h, d)
 // of q, k, v and o in that order; the wrapper has checked what TMA needs
@@ -564,29 +609,36 @@ extern "C" int flash_attention_sm90_smem_bytes(int head_dim) {
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o,
                                            const long long* strides, int batch,
-                                           int seq, int n_heads, int n_kv_heads,
-                                           int head_dim, float scale, int causal,
-                                           int window, cudaStream_t stream) {
-  if (head_dim != 64 && head_dim != 128) return -1;
+                                           int seq_q, int seq_k, int n_heads,
+                                           int n_kv_heads, int head_dim, float scale,
+                                           int causal, int window,
+                                           cudaStream_t stream) {
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return -1;
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -2;
   Params p;
   CUtensorMap tq, tk, tv;
-  CUresult res = make_map(enc, &tq, q, strides, batch, seq, n_heads, head_dim, &p.qpos);
+  const int bk = block_k(head_dim);
+  CUresult res = make_map(enc, &tq, q, strides, batch, seq_q, n_heads, head_dim,
+                          kBlockQ, &p.qpos);
   if (res == CUDA_SUCCESS)
-    res = make_map(enc, &tk, k, strides + 4, batch, seq, n_kv_heads, head_dim, &p.kpos);
+    res = make_map(enc, &tk, k, strides + 4, batch, seq_k, n_kv_heads, head_dim, bk,
+                   &p.kpos);
   if (res == CUDA_SUCCESS)
-    res = make_map(enc, &tv, v, strides + 8, batch, seq, n_kv_heads, head_dim, &p.vpos);
+    res = make_map(enc, &tv, v, strides + 8, batch, seq_k, n_kv_heads, head_dim, bk,
+                   &p.vpos);
   if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
   p.o = static_cast<__nv_bfloat16*>(o);
   p.os_b = strides[12];
   p.os_s = strides[13];
   p.os_h = strides[14];
-  p.seq = seq;
+  p.seq_q = seq_q;
+  p.seq_k = seq_k;
   p.group = n_heads / n_kv_heads;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal;
   p.window = window;
   if (head_dim == 64) return launch<64>(tq, tk, tv, p, n_heads, batch, stream);
-  return launch<128>(tq, tk, tv, p, n_heads, batch, stream);
+  if (head_dim == 128) return launch<128>(tq, tk, tv, p, n_heads, batch, stream);
+  return launch<256>(tq, tk, tv, p, n_heads, batch, stream);
 }

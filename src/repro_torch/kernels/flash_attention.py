@@ -1,4 +1,4 @@
-"""Blocked causal/local GQA self-attention forward (flash attention).
+"""Blocked causal/local GQA attention forward (flash attention).
 
 Port of the Pallas TPU kernel ``_fa_kernel`` (``repro.kernels.
 flash_attention``). One function, in three versions:
@@ -6,8 +6,9 @@ flash_attention``). One function, in three versions:
   - :func:`flash_attention_cuda`, the wrapper of two hand-written Hopper
     kernels, chosen by dtype: bfloat16 goes to
     ``csrc/flash_attention_sm90.cu`` (``"sm90_bf16"``: TMA loads of 128-row
-    tiles, both products on the tensor cores with ``wgmma``, fp32 online
-    softmax, P rounded to bf16 before P.V), float32 to
+    q tiles and 128-row kv tiles, 64-row at Dh=256, both products on the
+    tensor cores with ``wgmma``, fp32 online softmax, P rounded to bf16
+    before P.V), float32 to
     ``csrc/flash_attention.cu`` (``"simt_fp32"``: fp32 products on the CUDA
     cores, since fp32 inputs must meet 1e-5 and wgmma has no full-fp32
     mode). The notes in the sources give each design and what bounds it.
@@ -16,8 +17,14 @@ flash_attention``). One function, in three versions:
     with ``repeat_interleave``, an fp32 einsum, a ``-inf`` masked softmax and
     an fp32 P.V. The CPU tests and ``chip_smoke.py`` hold both kernels to it.
 
-All compute self-attention with positions implicitly 0..S-1 (q and k of
-one length), ``(B, S, H, Dh)`` in, ``(B, S, H, Dh)`` in ``q.dtype`` out.
+All take q ``(B, Sq, H, Dh)`` and k, v ``(B, Sk, KVH, Dh)`` with positions
+implicitly 0..Sq-1 and 0..Sk-1, as the Pallas kernel does: Sq == Sk is
+self-attention, Sq != Sk cross-attention (non-causal) or a causal mask
+aligned top-left (``kp <= qp``). They return ``(B, Sq, H, Dh)`` in
+``q.dtype``. A row that sees no key gives 0 in the plain version and the
+sm90 kernel; the SIMT kernel follows the Pallas kernel's finite mask
+there, so such rows (only possible with Sq > Sk and a window) are outside
+the contract.
 ``launches`` counts the kernels' launches and ``launches_by_kernel`` splits
 the count by kernel, so a run can show which kernel served its main path.
 """
@@ -34,7 +41,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
            "check_tma"]
 
 #: Head dims the kernels are compiled for.
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: Kernel name -> (csrc source, dtype it takes).
 KERNELS = {"sm90_bf16": ("flash_attention_sm90", torch.bfloat16),
            "simt_fp32": ("flash_attention", torch.float32)}
@@ -74,14 +81,13 @@ def check_tma(x: torch.Tensor, name: str) -> None:
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError("flash attention takes q (B, S, H, Dh) and k, v "
-                         "(B, S, KVH, Dh) of one shape")
-    b, s, h, dh = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, dh):
+        raise ValueError("flash attention takes q (B, Sq, H, Dh) and k, v "
+                         "(B, Sk, KVH, Dh) of one shape")
+    b, _, h, dh = q.shape
+    if (k.shape[0], k.shape[3]) != (b, dh):
         raise ValueError(
-            f"flash attention is self-attention with positions 0..S-1: q "
-            f"{tuple(q.shape)} and k {tuple(k.shape)} must agree in B, S and "
-            f"Dh")
+            f"flash attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
+            f"must agree in B and Dh")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"H={h} is not a multiple of KVH={k.shape[2]}")
 
@@ -89,24 +95,26 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           softmax_scale: float | None = None) -> torch.Tensor:
-    """The plain PyTorch version: ``(B, S, H, Dh)`` in ``q.dtype``."""
+    """The plain PyTorch version: ``(B, Sq, H, Dh)`` in ``q.dtype``."""
     _check_shapes(q, k, v)
-    _, s, h, dh = q.shape
+    _, sq, h, dh = q.shape
+    sk = k.shape[1]
     rep = h // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    pos = torch.arange(s, device=q.device)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kp <= qp
     if window is not None:
         mask &= kp > qp - window
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+    logits.masked_fill_(~mask, float("-inf"))
+    # a row with no visible key: softmax gives NaN, the kernels give 0
+    probs = torch.softmax(logits, dim=-1).nan_to_num_(0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
 
@@ -116,12 +124,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softmax_scale: float | None = None) -> torch.Tensor:
     """Launch the kernel for ``q.dtype`` on the current stream.
 
-    Takes q, k, v on one CUDA device, all bfloat16 (the sm90 kernel, whose
-    strides must satisfy :func:`check_tma`) or all float32 (the SIMT
-    kernel, any strides), with Dh in :data:`HEAD_DIMS`, and returns
-    ``(B, S, H, Dh)`` in their dtype. The strides are passed to the kernel;
-    nothing is copied. Raises on anything else and when the launch fails.
-    S = 0 returns an empty tensor without a launch.
+    Takes q ``(B, Sq, H, Dh)`` and k, v ``(B, Sk, KVH, Dh)`` on one CUDA
+    device, all bfloat16 (the sm90 kernel, whose strides must satisfy
+    :func:`check_tma`) or all float32 (the SIMT kernel, any strides), with
+    Dh in :data:`HEAD_DIMS`, and returns ``(B, Sq, H, Dh)`` in their dtype.
+    The strides are passed to the kernel; nothing is copied. Raises on
+    anything else and when the launch fails. Sq = 0 returns an empty tensor
+    without a launch, and so does Sk = 0 (zeros: no row sees a key).
     """
     global launches
     _check_shapes(q, k, v)
@@ -134,7 +143,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     kernel = kernel_for(q.dtype)
-    b, s, h, dh = q.shape
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for Dh in {HEAD_DIMS}, got "
                          f"Dh={dh}")
@@ -144,29 +154,32 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for x, name in ((q, "q"), (k, "k"), (v, "v")):
             check_tma(x, name)
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
-    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if sk == 0:
+        return out.zero_()
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
     source = KERNELS[kernel][0]
     fn = getattr(_build.load(source), f"{source}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 strides, b, s, h, k.shape[2], dh, float(scale), int(causal),
+                 strides, b, sq, sk, h, k.shape[2], dh, float(scale),
+                 int(causal),
                  0 if window is None else int(window), stream)
     if err != 0:
         what = {-2: "libcuda offers no cuTensorMapEncodeTiled"}.get(
             err, f"tensor map refused (CUresult {-err - 1000})"
             if err <= -1000 else f"CUDA error {err}")
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
-                           f"{what} (B={b}, S={s}, H={h}, KVH={k.shape[2]}, "
-                           f"Dh={dh}, {q.dtype})")
+                           f"{what} (B={b}, Sq={sq}, Sk={sk}, H={h}, "
+                           f"KVH={k.shape[2]}, Dh={dh}, {q.dtype})")
     launches += 1
     launches_by_kernel[kernel] += 1
     return out

@@ -18,18 +18,35 @@ hit each of them:
   - ``zeros``: half the sizes are 0.
 
 Each is numpy only and made from a seed, so both packages' tests can use it.
+
+``FLASH_SHAPES`` does the same for the flash-attention kernels: the shapes
+the RG-LRU hybrid and the enc-dec families bring, around the sm90 kernel's
+tile edges, which the tests and ``chip_smoke.py`` both run.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["HAZARD_DISTANCES", "KINDS", "hazard_stream"]
+__all__ = ["FLASH_SHAPES", "HAZARD_DISTANCES", "KINDS", "hazard_stream"]
 
 #: Distances between a flow and the earlier flow whose ports it repeats.
 HAZARD_DISTANCES = (1, 2, 3, 4)
 #: Every kind of stream, in a fixed order (part of each stream's seed).
 KINDS = tuple(f"{what}@{d}" for what in ("row", "col", "cell")
               for d in HAZARD_DISTANCES) + ("mixed", "run", "ties", "zeros")
+#: (B, Sq, Sk, H, KVH, Dh, causal, window): Dh=256 (RecurrentGemma, MQA) at
+#: S around the sm90 kernel's 64-row kv tiles with windows none, 1, 300 and
+#: 2,048; then Sq != Sk both ways, causal (aligned top-left) and not, at
+#: each head dim.
+FLASH_SHAPES = [(2, S, S, 4, 1, 256, True, w)
+                for S in (1, 63, 64, 65, 127, 128, 129, 700)
+                for w in (None, 1, 300, 2048)]
+FLASH_SHAPES += [(2, S, S, 4, 2, 256, False, None) for S in (64, 129)]
+FLASH_SHAPES += [(2, sq, sk, 4, 2, Dh, causal, None)
+                 for Dh in (64, 128, 256)
+                 for sq, sk in ((128, 2048), (2048, 128), (1, 300),
+                                (77, 200), (200, 77), (129, 65))
+                 for causal in (True, False)]
 
 
 def _repeat(fi: np.ndarray, fj: np.ndarray, t: int, what: str, d: int):

@@ -42,27 +42,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor | None = None,
                     kv_positions: torch.Tensor | None = None,
                     kv_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Self-attention flash kernel: ``(B, S, H, Dh)`` in ``q.dtype``.
+    """Flash kernel: q ``(B, Sq, H, Dh)``, k, v ``(B, Sk, KVH, Dh)`` ->
+    ``(B, Sq, H, Dh)`` in ``q.dtype``.
 
-    The kernel's contract is the reference kernel's: q and k have one
-    length and positions are implicitly 0..S-1. The reference wrapper
-    accepts and drops ``q_positions``, ``kv_positions`` and ``kv_valid``,
-    which is wrong for a cached call; here any of them, or ``Sq != Sk``,
-    raises ``ValueError``. Cached and decode calls belong to
-    ``models.attention.attend_xla``. The kernels tile S in fixed blocks
-    (128 rows in bf16, 64 in fp32) and mask the ragged tail themselves, so
-    no block size is chosen here.
+    The kernel's contract is the reference kernel's: positions are
+    implicitly 0..Sq-1 and 0..Sk-1, so Sq == Sk is self-attention over a
+    fresh sequence and Sq != Sk a cross-attention (or a top-left aligned
+    causal mask). The reference wrapper accepts and drops ``q_positions``,
+    ``kv_positions`` and ``kv_valid``, which is wrong for a cached call;
+    here any of them raises ``ValueError``. Cached and decode calls belong
+    to ``models.attention.attend_xla``. The kernels tile Sq and Sk in fixed
+    blocks (bf16: 128-row q tiles, 128-row kv tiles, 64 at Dh=256; fp32: 64)
+    and mask the ragged tails themselves, so no block size is chosen here.
     """
     if q_positions is not None or kv_positions is not None \
             or kv_valid is not None:
         raise ValueError(
             "flash_attention takes no q_positions, kv_positions or kv_valid: "
-            "the kernel attends over positions 0..S-1; cached calls go to "
-            "attend_xla")
-    if q.shape[1] != k.shape[1]:
-        raise ValueError(
-            f"flash_attention is self-attention: Sq={q.shape[1]} != "
-            f"Sk={k.shape[1]}; cached calls go to attend_xla")
+            "the kernel attends over positions 0..Sq-1 and 0..Sk-1; cached "
+            "calls go to attend_xla")
     dev = q.device
     if dev.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -1,12 +1,15 @@
-"""The model zoo's dense family for serving, in PyTorch.
+"""The model zoo for serving, in PyTorch: every family of the reference.
 
-Port of ``repro.models`` (dense family): ``api`` (``ModelConfig``,
-``build_model``), ``common`` (norms, RoPE, SwiGLU, loss, seeded
-initialisation), ``attention`` (``attend_xla``, ``attend`` with the CUDA
-flash-attention kernel behind ``impl="pallas"``, the KV cache), ``dense``
-(``DenseLM``) and ``weights`` (``params_from_jax``).
+Port of ``repro.models``: ``api`` (``ModelConfig``, ``build_model``,
+``model_class``), ``common`` (norms, RoPE, SwiGLU, GeLU MLP, the causal
+conv, loss, seeded initialisation, the parameter tree), ``attention``
+(``attend_xla``, ``attend`` with the CUDA flash-attention kernel behind
+``impl="pallas"``, the KV cache), ``family`` (``FamilyLM``, what the
+families share), ``dense`` (``DenseLM``: dense and vlm), ``moe``
+(``MoELM``), ``rglru`` (``GriffinLM``: hybrid), ``encdec`` (``EncDecLM``:
+audio), ``xlstm`` (``XLSTMLM``: ssm) and ``weights`` (``params_from_jax``).
 """
-from .api import ModelConfig, build_model  # noqa: F401
+from .api import ModelConfig, build_model, model_class  # noqa: F401
 from .dense import DenseLM  # noqa: F401
 
-__all__ = ["ModelConfig", "build_model", "DenseLM"]
+__all__ = ["ModelConfig", "build_model", "model_class", "DenseLM"]

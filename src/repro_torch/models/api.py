@@ -9,8 +9,9 @@ holds its weights and offers::
   decode_step(cache, tokens)     -> (logits, cache)
   make_caches(batch, s_max)      -> cache
 
-The dense family is ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+Every family of the reference is ported: dense and vlm (``DenseLM``), moe
+(``MoELM``), hybrid (``GriffinLM``), audio (``EncDecLM``) and ssm
+(``XLSTMLM``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig", "build_model"]
+__all__ = ["ModelConfig", "build_model", "model_class"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,14 +79,29 @@ class ModelConfig:
         return self.family not in ("ssm", "hybrid")
 
 
-#: Families the port does not have yet, and the ROADMAP item that brings each.
-_WAITING = {
-    "vlm": "queue 1, item 9 (the vision prefix of the dense family)",
-    "moe": "queue 1, item 9 (the other model families)",
-    "ssm": "queue 1, item 9 (the other model families)",
-    "hybrid": "queue 1, item 9 (the other model families)",
-    "audio": "queue 1, item 9 (the other model families)",
-}
+def model_class(family: str):
+    """The ``nn.Module`` class that implements ``family``."""
+    if family in ("dense", "vlm"):
+        from .dense import DenseLM
+
+        return DenseLM
+    if family == "moe":
+        from .moe import MoELM
+
+        return MoELM
+    if family == "ssm":
+        from .xlstm import XLSTMLM
+
+        return XLSTMLM
+    if family == "hybrid":
+        from .rglru import GriffinLM
+
+        return GriffinLM
+    if family == "audio":
+        from .encdec import EncDecLM
+
+        return EncDecLM
+    raise ValueError(f"unknown family {family!r}")
 
 
 def build_model(cfg: ModelConfig, *, device=None,
@@ -93,14 +109,6 @@ def build_model(cfg: ModelConfig, *, device=None,
     """Instantiate the family implementation for a config.
 
     ``device`` and ``generator`` go to the model's constructor (weights are
-    drawn from ``generator``; see ``DenseLM``).
+    drawn from ``generator``; see ``family.FamilyLM``).
     """
-    if cfg.family == "dense":
-        from .dense import DenseLM
-
-        return DenseLM(cfg, device=device, generator=generator)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{_WAITING[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    return model_class(cfg.family)(cfg, device=device, generator=generator)

@@ -21,8 +21,14 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ParamFactory", "rms_norm", "layer_norm", "rope_frequencies",
-           "apply_rope", "swiglu", "softmax_cross_entropy", "param_count",
-           "tree_bytes", "constrain"]
+           "apply_rope", "swiglu", "gelu_mlp", "causal_depthwise_conv",
+           "conv_step", "softmax_cross_entropy", "param_count", "tree_bytes",
+           "constrain", "register_tree"]
+
+#: Elements above which ``ParamFactory.dense`` draws a leaf slice by slice
+#: along its leading dims (4 GiB as one fp32 temporary). Every leaf of the
+#: dense configs is smaller, so their draws are one call each.
+DRAW_SLICE = 1 << 30
 
 
 class ParamFactory:
@@ -32,8 +38,10 @@ class ParamFactory:
     ``[-2, 2]``, times ``scale`` or ``1/sqrt(fan_in)``, in fp32, then cast)
     from ``generator``. The numbers differ from ``jax.random``'s for the same
     seed; tests that compare the two frameworks carry weights across instead
-    (``models.weights.params_from_jax``). On the ``meta`` device every
-    method allocates nothing and draws nothing.
+    (``models.weights.params_from_jax``). A leaf of more than
+    :data:`DRAW_SLICE` elements is drawn one leading-dim slice at a time
+    (an MoE expert stack at full width would need a 27 GB fp32 temporary).
+    On the ``meta`` device every method allocates nothing and draws nothing.
     """
 
     def __init__(self, generator: torch.Generator | None, *,
@@ -49,10 +57,19 @@ class ParamFactory:
             return torch.empty(shape, dtype=dtype, device=self.device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        w = torch.empty(shape, dtype=torch.float32, device=self.device)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        self._fill(out, std)
+        return out
+
+    def _fill(self, out: torch.Tensor, std: float) -> None:
+        if out.numel() > DRAW_SLICE and out.ndim > 1:
+            for part in out:
+                self._fill(part, std)
+            return
+        w = torch.empty(out.shape, dtype=torch.float32, device=self.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                     generator=self.generator)
-        return (w * std).to(dtype)
+        out.copy_(w * std)
 
     def zeros(self, shape: tuple[int, ...], *,
               dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -89,6 +106,43 @@ def param_count(tree) -> int:
 def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
     """Sharding constraint of the reference; the identity without a mesh."""
     return x
+
+
+def register_tree(module: torch.nn.Module,
+                  tensors: Mapping[str, torch.Tensor]) -> None:
+    """Register ``tensors`` (dotted names, the reference's tree paths) on
+    ``module`` as frozen parameters, so that its state dict has those names.
+
+    A name without a dot is a parameter of ``module``; a group whose members
+    are all leaves becomes an ``nn.ParameterDict`` (``module.blocks["wq"]``),
+    any other group an ``nn.Module`` holding its subgroups.
+    """
+    tree: dict = {}
+    for name, t in tensors.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def build(node: dict) -> torch.nn.Module:
+        if all(isinstance(v, torch.Tensor) for v in node.values()):
+            return torch.nn.ParameterDict(
+                {k: torch.nn.Parameter(v, requires_grad=False)
+                 for k, v in node.items()})
+        mod = torch.nn.Module()
+        attach(mod, node)
+        return mod
+
+    def attach(mod: torch.nn.Module, node: dict) -> None:
+        for key, val in node.items():
+            if isinstance(val, torch.Tensor):
+                mod.register_parameter(
+                    key, torch.nn.Parameter(val, requires_grad=False))
+            else:
+                mod.add_module(key, build(val))
+
+    attach(module, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +213,35 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: ``down(silu(x @ gate) * (x @ up))``."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """GeLU (tanh approximation) MLP with biases."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
+def causal_depthwise_conv(x: torch.Tensor, kernel: torch.Tensor
+                          ) -> torch.Tensor:
+    """Causal depthwise conv of ``x (B, S, C)`` with ``kernel (w, C)``, the
+    same length out: ``w`` shifted multiply-adds in ``x.dtype``, as the
+    reference computes it (a sequence that starts from zeros)."""
+    w = kernel.shape[0]
+    kf = kernel.to(x.dtype)
+    out = x * kf[w - 1]
+    for t in range(1, w):
+        shifted = F.pad(x[:, :-t, :], (0, 0, t, 0))
+        out = out + shifted * kf[w - 1 - t]
+    return out
+
+
+def conv_step(x_t: torch.Tensor, tail: torch.Tensor, kernel: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token of the causal conv: ``x_t (B, C)`` after ``tail (B, w-1,
+    C)``, summed in fp32; returns ``(out (B, C) in x_t.dtype, new tail)``."""
+    window = torch.cat([tail, x_t[:, None, :]], dim=1)  # (B, w, C)
+    out = torch.einsum("bwc,wc->bc", window.float(), kernel.float())
+    return out.to(x_t.dtype), window[:, 1:, :]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

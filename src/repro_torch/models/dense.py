@@ -1,9 +1,11 @@
 """Dense decoder-only transformer LM (llama/qwen/stablelm-style, GQA).
 
-Port of ``repro.models.dense`` for the text-only dense configs:
-tinyllama-1.1b, qwen1.5-{0.5b,4b} (QKV bias) and stablelm-1.6b (partial
-RoPE, LayerNorm). The vision prefix (``n_prefix_tokens``, InternVL2) waits
-(ROADMAP queue 1, item 9).
+Port of ``repro.models.dense``: tinyllama-1.1b, qwen1.5-{0.5b,4b} (QKV
+bias), stablelm-1.6b (partial RoPE, LayerNorm) and the internvl2-76b LM
+backbone (family ``"vlm"``: ``n_prefix_tokens`` precomputed patch
+embeddings ``prefix_embeds (B, P, D)`` are put before the token embeddings
+in the forward pass and the prefill, and their positions are dropped from
+the forward pass's logits; the ViT itself is a stub, as in the reference).
 
 ``DenseLM`` is an ``nn.Module`` that holds the reference's stacked weights
 in the reference's layout: ``blocks.wq (L, D, H*Dh)`` multiplies as
@@ -21,27 +23,26 @@ sends those cached calls to its flash kernel, whose wrapper drops the
 positions and ``kv_valid`` and attends a decode query as if it stood at
 position 0; the port does not copy that fault (ROADMAP queue 3).
 
-``batch`` dict keys: ``tokens (B, S)`` int, and ``labels (B, S)`` for
-``loss`` (-1 = masked).
+``batch`` dict keys: ``tokens (B, S)`` int, ``labels (B, S)`` for ``loss``
+(-1 = masked), and ``prefix_embeds (B, P, D)`` for the vlm family.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from ..device import resolve_device
 from .api import ModelConfig
 from .attention import (KVCache, attend, kv_cache_init, kv_cache_layer_update,
                         kv_cache_slot_positions)
 from .common import (ParamFactory, apply_rope, layer_norm, rms_norm,
                      rope_frequencies, softmax_cross_entropy)
+from .family import FamilyLM
 
 __all__ = ["DenseLM", "param_shapes"]
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """State-dict name -> shape of a dense model's weights."""
+    """State-dict name -> shape of a dense (or vlm) model's weights."""
     L, D, H, KVH, Dh, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                             cfg.n_kv_heads, cfg.dh, cfg.d_ff)
     V = cfg.padded_vocab
@@ -70,74 +71,29 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-class DenseLM(nn.Module):
-    """Dense LM with weights drawn from ``generator`` on ``device``.
+class DenseLM(FamilyLM):
+    """Dense LM (see :class:`family.FamilyLM` for ``device``, ``generator``
+    and ``from_state``)."""
 
-    ``device=None`` means CUDA (see ``resolve_device``); ``generator=None``
-    means a generator on that device seeded with 0. ``DenseLM.from_state``
-    builds one from a state dict instead (no weights are drawn).
-    """
+    FAMILIES = ("dense", "vlm")
+    param_shapes = staticmethod(param_shapes)
 
-    def __init__(self, cfg: ModelConfig, *, device=None,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        if cfg.family != "dense":
-            raise ValueError(f"DenseLM takes the dense family, not "
-                             f"{cfg.family!r}")
-        if cfg.n_prefix_tokens:
-            raise NotImplementedError(
-                "the vision prefix (n_prefix_tokens) is not ported yet: "
-                "ROADMAP queue 1, item 9")
-        self.cfg = cfg
-        dev = torch.device("meta") if str(device) == "meta" \
-            else resolve_device(device)
-        if generator is None and dev.type != "meta":
-            generator = torch.Generator(device=dev).manual_seed(0)
-        f = ParamFactory(generator, dtype=cfg.dtype, device=dev)
-        blocks = {}
-        for name, shape in param_shapes(cfg).items():
-            base = name.split(".")[-1]
-            if base in ("ln1", "ln2", "ln_f"):
-                t = f.ones(shape)
-            elif base in ("bq", "bk", "bv", "ln1b", "ln2b", "ln_fb"):
-                t = f.zeros(shape)
-            else:  # the reference draws the embedding at scale 0.02
-                t = f.dense(shape, scale=0.02 if name == "embed" else None)
-            param = nn.Parameter(t, requires_grad=False)
-            if name.startswith("blocks."):
-                blocks[base] = param
-            else:
-                self.register_parameter(name, param)
-        self.blocks = nn.ParameterDict(blocks)
+    def _init_leaf(self, f: ParamFactory, name: str, shape: tuple[int, ...],
+                   dtype: torch.dtype) -> torch.Tensor:
+        base = name.split(".")[-1]
+        if base in ("ln1", "ln2", "ln_f"):
+            return f.ones(shape, dtype=dtype)
+        if base in ("bq", "bk", "bv", "ln1b", "ln2b", "ln_fb"):
+            return f.zeros(shape, dtype=dtype)
+        # the reference draws the embedding at scale 0.02
+        return f.dense(shape, scale=0.02 if name == "embed" else None,
+                       dtype=dtype)
+
+    def _place(self, dev: torch.device) -> None:
         inv_freq, self.rot = rope_frequencies(
-            cfg.dh, base=cfg.rope_base, fraction=cfg.rope_fraction)
+            self.cfg.dh, base=self.cfg.rope_base,
+            fraction=self.cfg.rope_fraction)
         self.register_buffer("inv_freq", inv_freq.to(dev), persistent=False)
-
-    @classmethod
-    def from_state(cls, cfg: ModelConfig,
-                   state: dict[str, torch.Tensor]) -> "DenseLM":
-        """A model whose weights are ``state``'s tensors (not copied), on
-        their device; the names and shapes must be :func:`param_shapes`'."""
-        want = param_shapes(cfg)
-        got = {k: tuple(v.shape) for k, v in state.items()}
-        if got != want:
-            raise ValueError(f"state does not match {cfg.name}: expected "
-                             f"{want}, got {got}")
-        devices = {t.device for t in state.values()}
-        if len(devices) != 1:
-            raise ValueError(f"state spans devices {devices}")
-        model = cls(cfg, device="meta")
-        model.load_state_dict(state, assign=True)
-        for p in model.parameters():
-            p.requires_grad_(False)
-        model.inv_freq = rope_frequencies(
-            cfg.dh, base=cfg.rope_base, fraction=cfg.rope_fraction
-        )[0].to(devices.pop())
-        return model
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
 
     # ------------------------------------------------------------- internals
     def _w(self, name: str, layer: int) -> torch.Tensor:
@@ -195,29 +151,39 @@ class DenseLM(nn.Module):
         h = h + self._attn_out(o, layer)
         return h + self._mlp(self._norm(h, layer, "ln2"), layer)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()].to(self.cfg.dtype)
-
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        table = self.embed if cfg.tie_embeddings else self.unembed
-        logits = h @ table.T
-        if cfg.padded_vocab != cfg.vocab:  # mask the padding rows
-            logits = logits.clone()
-            logits[..., cfg.vocab:] = -1e9
-        return logits
+        return self._masked_logits(
+            h, self.embed if cfg.tie_embeddings else self.unembed)
+
+    def _with_prefix(self, h: torch.Tensor,
+                     prefix_embeds: torch.Tensor | None) -> torch.Tensor:
+        """The prefix embeddings ``(B, P, D)`` before the token embeddings."""
+        if prefix_embeds is None:
+            return h
+        return torch.cat([prefix_embeds.to(h.device, self.cfg.dtype), h],
+                         dim=1)
 
     @torch.inference_mode()
-    def _forward_train(self, batch: dict) -> torch.Tensor:
-        """Logits ``(B, S, V)`` of the whole sequence (forward only)."""
-        tokens = batch["tokens"].to(self.device)
-        h = self._embed(tokens)
-        B, S = tokens.shape
+    def _forward_train(self, batch: dict, *, last: bool = False
+                       ) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of the whole sequence (forward only); with a
+        vision prefix, of the text positions only. ``last=True`` gives the
+        last position's ``(B, 1, V)`` alone (a full-width check would not
+        hold every position's logits)."""
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        if cfg.n_prefix_tokens:
+            h = self._with_prefix(h, batch["prefix_embeds"])
+        B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
-        for layer in range(self.cfg.n_layers):
+        for layer in range(cfg.n_layers):
             h = self._block_train(h, layer, positions)
-        return self._logits(self._norm(h, None, "ln_f"))
+        if cfg.n_prefix_tokens:
+            h = h[:, cfg.n_prefix_tokens:]
+        return self._logits(self._norm(h[:, -1:] if last else h, None,
+                                       "ln_f"))
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
@@ -232,18 +198,19 @@ class DenseLM(nn.Module):
                              cfg.dh, cfg.dtype, device=self.device)
 
     @torch.inference_mode()
-    def _step(self, cache: KVCache, tokens: torch.Tensor, fresh: bool
+    def _step(self, cache: KVCache, tokens: torch.Tensor, fresh: bool,
+              prefix_embeds: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, KVCache]:
-        """Shared prefill/decode: append ``Sq`` tokens to the cache (in
-        place) and return the last position's logits ``(B, 1, V)``.
+        """Shared prefill/decode: append ``Sq`` tokens (after the prefix
+        embeddings, if given) to the cache (in place) and return the last
+        position's logits ``(B, 1, V)``.
 
         ``fresh`` (the cache is empty) lets ``attention_impl="pallas"``
         attend over the in-flight K/V with the flash kernel; every other
         call attends over the cache with ``attend_xla``.
         """
         cfg = self.cfg
-        tokens = tokens.to(self.device)
-        h = self._embed(tokens)
+        h = self._with_prefix(self._embed(tokens), prefix_embeds)
         B, Sq, _ = h.shape
         start = cache.length
         qpos = (start[:, None]
@@ -272,13 +239,15 @@ class DenseLM(nn.Module):
 
     def prefill(self, cache: KVCache, batch: dict
                 ) -> tuple[torch.Tensor, KVCache]:
-        """Append the prompt ``batch["tokens"]``; last logits ``(B, 1, V)``.
+        """Append the prompt ``batch["tokens"]`` (after
+        ``batch["prefix_embeds"]``, if given); last logits ``(B, 1, V)``.
 
         Reads ``cache.length`` on the host once, to tell a fresh prefill
         (the flash kernel's case) from one into a non-empty cache.
         """
         fresh = not bool(cache.length.any())
-        return self._step(cache, batch["tokens"], fresh)
+        return self._step(cache, batch["tokens"], fresh,
+                          batch.get("prefix_embeds"))
 
     def decode_step(self, cache: KVCache, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, KVCache]:

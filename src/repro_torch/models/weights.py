@@ -1,12 +1,13 @@
-"""Weights from the JAX package's parameter tree into the port's ``DenseLM``.
+"""Weights from the JAX package's parameter tree into the port's models.
 
-The reference's ``model.init(key)[0]`` is a nested dict: ``embed``,
-``blocks.{wq, wk, wv, wo, ln1, ln2, w_gate, w_up, w_down[, bq, bk, bv,
-ln1b, ln2b]}``, ``ln_f[, ln_fb]``, ``[unembed]``. The port keeps the same
-names and layouts, so each leaf is one copy with no transpose. The tree is
-taken as numpy arrays (``np.asarray`` of each leaf), so this module needs
-no JAX. bfloat16 has no numpy dtype of its own: a leaf of the ``ml_dtypes``
-bfloat16 type is widened to float32 first, which is exact.
+The reference's ``model.init(key)[0]`` is a nested dict (for the dense
+family ``embed``, ``blocks.{wq, wk, wv, wo, ...}``, ``ln_f``, ...; for the
+hybrid one ``sup.slot0.{w_x, ...}``, ``tail0.*``, ...). Every family of the
+port keeps the same names and layouts (its ``param_shapes``), so each leaf
+is one copy with no transpose. The tree is taken as numpy arrays
+(``np.asarray`` of each leaf), so this module needs no JAX. bfloat16 has no
+numpy dtype of its own: a leaf of the ``ml_dtypes`` bfloat16 type is
+widened to float32 first, which is exact.
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .api import ModelConfig
-from .dense import param_shapes
+from .api import ModelConfig, model_class
 
 __all__ = ["params_from_jax"]
 
@@ -38,15 +38,19 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None,
                     dtype: torch.dtype | None = None
                     ) -> dict[str, torch.Tensor]:
-    """The port's dense state dict from the reference's parameter tree.
+    """The port's state dict of ``cfg``'s family from the reference's tree.
 
     Every leaf lands on ``device`` (``None``: CUDA, and ``RuntimeError``
     without it; ``"cpu"`` only when asked for) in ``dtype`` (default:
-    ``cfg.dtype``). Raises ``ValueError`` when the tree's names or shapes are
-    not those of ``cfg``. Build the model with ``DenseLM.from_state``.
+    ``cfg.dtype``), except the leaves the family keeps in float32 (its
+    ``FP32_LEAVES``: the MoE router, the RG-LRU's ``lam``, the xLSTM gate
+    biases), which stay float32 as in the reference. Raises ``ValueError``
+    when the tree's names or shapes are not those of ``cfg``. Build the
+    model with ``model_class(cfg.family).from_state``.
     """
     flat = _flatten(tree)
-    want = param_shapes(cfg)
+    cls = model_class(cfg.family)
+    want = cls.param_shapes(cfg)
     got = {k: tuple(v.shape) for k, v in flat.items()}
     if got != want:
         raise ValueError(f"the tree does not match {cfg.name}: expected "
@@ -58,6 +62,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None,
         arr = flat[name]
         if arr.dtype.type not in _NUMPY_FLOATS:
             arr = arr.astype(np.float32)
+        leaf_dtype = torch.float32 if name.rsplit(".", 1)[-1] in \
+            cls.FP32_LEAVES else dtype
         state[name] = torch.from_numpy(np.array(arr)).to(  # a copy
-            device=dev, dtype=dtype)
+            device=dev, dtype=leaf_dtype)
     return state

@@ -2,8 +2,11 @@
 
 Port of ``repro.serve.engine``. The model holds its weights, so a step
 takes ``(cache, batch)`` or ``(cache, tokens)`` where the reference's takes
-``params`` first. Steps run under ``torch.inference_mode`` and write the
-KV cache in place (see ``models.attention.KVCache``).
+``params`` first; the builders serve every family alike. A prefill's batch
+carries ``tokens (B, S)``, and ``src_frames (B, S_src, D)`` for the audio
+family or ``prefix_embeds (B, P, D)`` for vlm. Steps run under
+``torch.inference_mode`` and write the cache or recurrent state in place
+(see ``models.attention.KVCache``).
 ``cache_axes_for_mesh`` and ``serve_shardings`` wait for the
 ``distributed/`` item (ROADMAP queue 1, item 11).
 """

@@ -43,11 +43,12 @@ TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 just above a power of two
 
 
-def _qkv(seed, B, S, H, KVH, Dh, scale=1.0):
+def _qkv(seed, B, S, H, KVH, Dh, scale=1.0, Sk=None):
     rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
     q = rng.standard_normal((B, S, H, Dh)).astype(np.float32) * scale
-    k = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32) * scale
-    v = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KVH, Dh)).astype(np.float32) * scale
+    v = rng.standard_normal((B, Sk, KVH, Dh)).astype(np.float32)
     return q, k, v
 
 
@@ -89,6 +90,49 @@ def test_plain_version_matches_every_pallas_tiling(blocks):
     np.testing.assert_allclose(_f32(got), _f32(kern), atol=1e-5, rtol=1e-5)
 
 
+# (B, Sq, Sk, H, KVH, Dh, causal, window, dtype, block_q, block_k): the
+# shapes the hybrid and audio families bring to the kernel. Dh=256 with and
+# without a window (RecurrentGemma's head dim); Sq != Sk both ways, causal
+# (the mask aligned top-left, kp <= qp) and not (cross-attention).
+NEW_SHAPES = [
+    (1, 128, 128, 4, 1, 256, True, None, "float32", 64, 64),
+    (2, 128, 128, 4, 1, 256, True, 48, "float32", 32, 64),
+    (1, 64, 64, 2, 2, 256, False, None, "bfloat16", 64, 32),
+    (2, 128, 128, 4, 1, 256, True, 100, "bfloat16", 64, 64),
+    (2, 32, 128, 4, 2, 64, True, None, "float32", 32, 64),
+    (2, 32, 128, 4, 2, 64, False, None, "float32", 32, 64),
+    (2, 128, 32, 4, 2, 64, True, None, "float32", 64, 32),
+    (2, 128, 32, 4, 2, 128, False, None, "bfloat16", 64, 32),
+    (1, 16, 96, 4, 4, 256, False, None, "bfloat16", 16, 32),
+    (1, 96, 64, 4, 1, 256, True, None, "bfloat16", 32, 64),
+]
+
+
+@pytest.mark.parametrize("case", NEW_SHAPES, ids=[str(c[:9]) for c in NEW_SHAPES])
+def test_plain_version_matches_pallas_kernel_at_new_shapes(case):
+    B, Sq, Sk, H, KVH, Dh, causal, window, dt, bq, bk = case
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _qkv(Sq * 7 + Sk, B, Sq, H, KVH, Dh, Sk=Sk), dt)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TORCH[dt] and got.shape == (B, Sq, H, Dh)
+    kern = flash_attention_fwd(jq, jk, jv, causal=causal, window=window,
+                               block_q=bq, block_k=bk, interpret=True)
+    ref = attention_ref(jq, jk, jv, causal=causal, window=window)
+    tol = 2e-2 if dt == "bfloat16" else 1e-5
+    for want in (kern, ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def test_plain_version_gives_zero_for_a_row_that_sees_no_key():
+    """With Sq > Sk and a window, late rows see no key: the plain version
+    and the sm90 kernel give 0 there (softmax alone gives NaN)."""
+    _, (tq, tk, tv) = _both(_qkv(2, 1, 40, 2, 2, 64, Sk=8), "float32")
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True, window=4)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:, 11:], torch.zeros_like(got[:, 11:]))
+    assert bool(got[:, :11].abs().sum(-1).gt(0).all())
+
+
 def test_ops_flash_attention_runs_plain_version_on_cpu():
     _, (tq, tk, tv) = _both(_qkv(3, 2, 100, 4, 2, 64), "float32")
     before, by_kernel = fa.launches, dict(fa.launches_by_kernel)
@@ -100,16 +144,25 @@ def test_ops_flash_attention_runs_plain_version_on_cpu():
 
 
 def test_ops_flash_attention_refuses_what_the_kernel_cannot_honour():
+    """Positions and ``kv_valid`` raise (the reference's wrapper drops
+    them: ROADMAP queue 3); Sq != Sk is the kernel's own contract now and
+    runs the plain version with implicit positions."""
     _, (tq, tk, tv) = _both(_qkv(3, 2, 16, 4, 2, 64), "float32")
     pos = torch.arange(16).expand(2, 16)
     with pytest.raises(ValueError, match="kv_valid"):
         port_ops.flash_attention(tq, tk, tv, kv_valid=pos >= 0)
     with pytest.raises(ValueError, match="q_positions"):
         port_ops.flash_attention(tq, tk, tv, q_positions=pos)
-    with pytest.raises(ValueError, match="Sq=1"):
-        port_ops.flash_attention(tq[:, -1:], tk, tv)
-    with pytest.raises(ValueError, match="Sq=1"):
-        port_attn.attend(tq[:, -1:], tk, tv, impl="pallas", causal=True)
+    with pytest.raises(ValueError, match="kv_positions"):
+        port_attn.attend(tq[:, -1:], tk, tv, impl="pallas", causal=True,
+                         kv_positions=pos)
+    for causal in (True, False):
+        got = port_ops.flash_attention(tq[:, -1:], tk, tv, causal=causal)
+        want = fa.flash_attention_plain(tq[:, -1:], tk, tv, causal=causal)
+        assert got.shape == (2, 1, 4, 64) and torch.equal(got, want)
+    got = port_attn.attend(tq[:, :5], tk, tv, impl="pallas", causal=False)
+    want = port_attn.attend_xla(tq[:, :5], tk, tv, causal=False)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_attn.attend(tq, tk, tv, impl="chunked", causal=True)
 
@@ -132,14 +185,14 @@ def _sm90_emulation(q, k, v, *, causal, window, block=128):
     rows; P rounded to bf16 before an fp32-accumulated P.V; l summed from
     the fp32 p; O / l (0 where l == 0), rounded to bf16."""
     _, s, h, dh = q.shape
+    sk = k.shape[1]
     rep = h // k.shape[2]
     qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
     kf, vf = kf.repeat_interleave(rep, 2), vf.repeat_interleave(rep, 2)
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * np.float32(
         dh ** -0.5 * np.log2(np.e))
-    pos = torch.arange(s)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool)
+    qp, kp = torch.arange(s)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool)
     if causal:
         mask &= kp <= qp
     if window is not None:
@@ -148,7 +201,7 @@ def _sm90_emulation(q, k, v, *, causal, window, block=128):
     m = torch.full(logits.shape[:3], float("-inf"))
     l = torch.zeros(logits.shape[:3])
     acc = torch.zeros(logits.shape[:3] + (dh,))
-    for k0 in range(0, s, block):
+    for k0 in range(0, sk, block):
         st = logits[..., k0:k0 + block]
         mn = torch.maximum(m, st.amax(-1))
         mu = torch.where(mn == float("-inf"), 0.0, mn)
@@ -161,6 +214,20 @@ def _sm90_emulation(q, k, v, *, causal, window, block=128):
         m = mn
     out = acc / torch.where(l > 0, l, 1.0)[..., None]
     return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", NEW_SHAPES, ids=[str(c[:9]) for c in NEW_SHAPES])
+def test_bf16_kernel_numerics_meet_the_contract_at_new_shapes(case):
+    """As below, at Dh=256 (64-row kv tiles) and Sq != Sk."""
+    B, Sq, Sk, H, KVH, Dh, causal, window, dt, bq, bk = case
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               for a in _qkv(Sq * 7 + Sk, B, Sq, H, KVH, Dh, Sk=Sk))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dt)
+    got = _sm90_emulation(tq, tk, tv, causal=causal, window=window,
+                          block=64 if Dh == 256 else 128)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, Dh)
+    ref = attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(ref), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[str(c[:7]) for c in CASES])

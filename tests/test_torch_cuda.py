@@ -17,9 +17,9 @@ import ctypes
 from repro_torch.kernels import _build
 from repro_torch.kernels import coflow_assign as ca
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.hazards import KINDS, hazard_stream
+from repro_torch.kernels.hazards import FLASH_SHAPES, KINDS, hazard_stream
 from repro_torch.kernels.ops import coflow_assign, flash_attention
-from repro_torch.models.api import ModelConfig
+from repro_torch.models.api import ModelConfig, build_model, model_class
 from repro_torch.models.attention import attend
 from repro_torch.models.dense import DenseLM
 from repro_torch.serve.engine import build_decode, build_prefill
@@ -434,6 +434,24 @@ def test_flash_kernel_equals_plain_version(dev, case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_SHAPES,
+                         ids=[str(c) for c in FLASH_SHAPES])
+def test_flash_kernel_equals_plain_version_at_new_shapes(dev, case, dtype):
+    B, Sq, Sk, H, KVH, Dh, causal, window = case
+    rng = np.random.default_rng(Sq * 31 + Sk + Dh)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev).to(dtype)
+               for shape in ((B, Sq, H, Dh), (B, Sk, KVH, Dh),
+                             (B, Sk, KVH, Dh)))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, Sq, H, Dh) and got.dtype == dtype
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_reads_strided_inputs(dev, dtype):
     """q, k, v as views of a fused (B, S, H + 2*KVH, Dh) tensor and of a
@@ -484,8 +502,12 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(dev):
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_cuda(q, k, v)
     q, k, v = _fa_inputs(dev, 1, 64, 4, 2, 64, torch.float32, seed=0)
-    with pytest.raises(ValueError, match="Sq"):
-        flash_attention(q[:, :1], k, v)
+    pos = torch.arange(64, device=dev)[None]
+    with pytest.raises(ValueError, match="q_positions"):
+        flash_attention(q[:, :1], k, v, q_positions=pos[:, :1])
+    before = fa.launches
+    flash_attention(q[:, :1], k, v)  # Sq != Sk is the kernel's contract
+    assert fa.launches == before + 1
 
 
 def test_flash_kernel_launches_from_ops_and_attend(dev):
@@ -528,3 +550,61 @@ def test_tiny_dense_lm_on_the_card_equals_the_cpu_run(dev, dtype):
     assert runs["gpu"][0] == cfg.n_layers and runs["cpu"][0] == 0
     for g, c in zip(runs["gpu"][1], runs["cpu"][1]):
         torch.testing.assert_close(g, c, atol=tol, rtol=tol)
+
+
+# A tiny model of every other family: the prefill's launches and its and
+# three decode steps' logits on the card equal the CPU run's.
+_TINY = {
+    "moe": dict(family="moe", n_layers=2, d_model=256, n_heads=4,
+                n_kv_heads=2, d_ff=128, vocab=500, n_experts=4, top_k=2),
+    "vlm": dict(family="vlm", n_layers=2, d_model=256, n_heads=4,
+                n_kv_heads=2, d_ff=256, vocab=500, n_prefix_tokens=16),
+    "hybrid": dict(family="hybrid", n_layers=5, d_model=256, n_heads=1,
+                   n_kv_heads=1, d_ff=256, vocab=500, window=40,
+                   block_pattern=("rec", "rec", "attn"),
+                   pattern_tail=("rec", "rec"), rnn_state_dim=256),
+    "audio": dict(family="audio", n_layers=2, d_model=256, n_heads=4,
+                  n_kv_heads=4, d_ff=256, vocab=499, vocab_pad_to=512,
+                  norm="layer", enc_layers=2, dec_layers=2),
+    "ssm": dict(family="ssm", n_layers=4, d_model=256, n_heads=4,
+                n_kv_heads=4, d_ff=0, vocab=500, slstm_period=2),
+}
+#: flash-kernel launches of one fresh prefill of each tiny config.
+_TINY_LAUNCHES = {"moe": 2, "vlm": 2, "hybrid": 1, "audio": 6, "ssm": 0}
+
+
+@pytest.mark.parametrize("family", list(_TINY))
+def test_tiny_family_on_the_card_equals_the_cpu_run(dev, family):
+    cfg = ModelConfig(name=f"tiny-{family}", attention_impl="pallas",
+                      dtype=torch.float32, **_TINY[family])
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    gpu = model_class(family).from_state(
+        cfg, {n: t.to(dev) for n, t in cpu.state_dict().items()})
+    rng = np.random.default_rng(4)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 100)))
+    extra = {}
+    if family == "vlm":
+        extra["prefix_embeds"] = torch.as_tensor(rng.standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+    if family == "audio":
+        extra["src_frames"] = torch.as_tensor(rng.standard_normal(
+            (2, 300, cfg.d_model)).astype(np.float32))
+    kw = {"s_src": 300} if family == "audio" else {}
+    runs = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        batch = {"tokens": tokens, **{k: v.to(model.device)
+                                      for k, v in extra.items()}}
+        cache = model.make_caches(2, 120, **kw)
+        before = fa.launches_by_kernel["simt_fp32"]
+        logits, cache = build_prefill(model)(cache, batch)
+        launched = fa.launches_by_kernel["simt_fp32"] - before
+        out = [logits.float().cpu()]
+        for _ in range(3):
+            nxt = out[-1][:, -1].argmax(-1)[:, None]
+            logits, cache = build_decode(model)(cache, nxt)
+            out.append(logits.float().cpu())
+        runs[name] = (launched, out)
+    assert runs["gpu"][0] == _TINY_LAUNCHES[family] and runs["cpu"][0] == 0
+    for g, c in zip(runs["gpu"][1], runs["cpu"][1]):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)

@@ -77,7 +77,10 @@ def _f32(x):
 
 
 def test_port_configs_equal_reference_configs():
-    for arch in ARCHS + ["qwen1.5-4b"]:
+    """Every arch of the reference, config and smoke config, field by field,
+    in the reference's order."""
+    assert list(port_configs.ARCHS) == list(ref_configs.ARCHS)
+    for arch in ref_configs.ARCHS:
         ref, port = ref_configs.get_arch(arch), port_configs.get_arch(arch)
         assert (port.arch_id, port.source) == (ref.arch_id, ref.source)
         for which in ("config", "smoke"):
@@ -95,14 +98,27 @@ def test_port_configs_equal_reference_configs():
         for k, v in ref_configs.SHAPES.items()}
 
 
-def test_other_families_name_their_roadmap_item():
-    for arch in ("internvl2-76b", "xlstm-1.3b", "qwen3-moe-235b-a22b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_configs.get_arch(arch)
-    cfg = PortConfig(name="m", family="moe", n_layers=1, d_model=8,
-                     n_heads=2, n_kv_heads=2, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_build(cfg, device="cpu")
+def _leaf_name(path) -> str:
+    return ".".join(str(getattr(k, "key", k)) for k in path)
+
+
+@pytest.mark.parametrize("arch", list(ref_configs.ARCHS))
+def test_full_config_param_shapes_match_reference_abstract_init(arch):
+    """``build_model`` of every arch's full config on the ``meta`` device
+    (nothing allocated) has the names, shapes and dtypes of the reference's
+    abstract init, and they are the family's ``param_shapes``."""
+    ref_cfg = ref_configs.get_arch(arch).config
+    port_cfg = port_configs.get_arch(arch).config
+    abstract, _ = ref_build(ref_cfg).init(None)
+    want = {_leaf_name(path): (tuple(x.shape), jnp.dtype(x.dtype).name)
+            for path, x in jax.tree_util.tree_leaves_with_path(abstract)}
+    model = port_build(port_cfg, device="meta")
+    got = {name: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+           for name, t in model.state_dict().items()}
+    assert got == want
+    assert type(model).param_shapes(port_cfg) == {
+        k: v[0] for k, v in want.items()}
+    assert all(t.is_meta for t in model.state_dict().values())
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
@@ -275,3 +291,38 @@ def test_seeded_initialisation_is_reproducible():
     w = a.blocks["w_gate"].float()
     assert float(w.abs().max()) <= 2.0 / cfg.d_model ** 0.5 + 1e-6
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 0.88) < 0.05
+
+
+def test_large_leaves_are_drawn_slice_by_slice(monkeypatch):
+    """A leaf within ``DRAW_SLICE`` is one truncated-normal draw, as before
+    the limit; a larger one is drawn one leading slice at a time (no fp32
+    temporary of the whole leaf), each slice the next draw of the same
+    generator, at the whole leaf's fan-in."""
+    import math
+
+    from repro_torch.models import common
+
+    def factory(seed):
+        return common.ParamFactory(torch.Generator().manual_seed(seed),
+                                   dtype=torch.bfloat16,
+                                   device=torch.device("cpu"))
+
+    shape = (3, 4, 16, 8)
+    w = torch.empty(shape)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                generator=torch.Generator().manual_seed(7))
+    one = factory(7).dense(shape)
+    assert torch.equal(one, (w / math.sqrt(16)).to(torch.bfloat16))
+
+    monkeypatch.setattr(common, "DRAW_SLICE", 4 * 16 * 8)
+    sliced = factory(7).dense(shape)
+    gen = torch.Generator().manual_seed(7)
+    for i in range(3):
+        part = torch.empty(shape[1:])
+        torch.nn.init.trunc_normal_(part, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        assert torch.equal(sliced[i], (part / math.sqrt(16)).to(
+            torch.bfloat16))
+    monkeypatch.setattr(common, "DRAW_SLICE", 16 * 8 - 1)
+    deeper = factory(7).dense(shape)  # slices of slices
+    assert deeper.shape == shape and float(deeper.abs().max()) <= 0.5
+    assert torch.equal(deeper, factory(7).dense(shape))

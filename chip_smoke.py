@@ -79,8 +79,11 @@ non-zero without printing a result):
  10. the paper's ablation grid: ``run_batch`` over the five algorithms and
      the three list policies (the sunflow baselines once), offline and
      online, on the M=48 trace instance (N=150), the fp64 host backend for
-     every point and the kernel for the tau-aware ones, weighted CCT
-     normalized to ``ours`` and each point's wall time; then, on the small
+     every point and the kernel for the tau-aware ones, through a spawn
+     pool of ``WORKERS`` processes (the chain kernel's launches counted in
+     the workers and returned with their rows), weighted CCT normalized to
+     ``ours`` and each point's wall time; the four cheapest fp64 points
+     run again serially and must give the pool's rows; then, on the small
      N=24, M=60 instance, every grid point on the card against the same
      point on the CPU, bit for bit in choices, t_establish and CCTs;
  11. the streaming service at full width: ``FabricManager`` on the card
@@ -124,7 +127,8 @@ non-zero without printing a result):
      ``run_batch(check="oracle")`` over the five algorithms and the three
      list policies, offline and online, on phase 10's small instance (N=24,
      M=60) on the card, the fp64 backend for every point and the kernel for
-     the tau-aware ones, then one point and the oracle ``run`` with all
+     the tau-aware ones (pooled, as phase 10), then one point and the
+     oracle ``run`` with all
      five certificates on the CPU, equal to the card's bit for bit. A run
      over the budget says so; 13b's depth is what gets cut;
  14. the other model families at full width (budget ``FAMILY_BUDGET_S``),
@@ -162,6 +166,28 @@ non-zero without printing a result):
      (the MoE cuts again at half depth, prefill only). A run over the
      budget says so; qwen3-moe's depth is the first cut.
 
+ 15. training (budget ``TRAIN_BUDGET_S``): (a) TinyLlama-1.1B at full
+     width and depth (22 layers, d=2,048, V=32,000), bf16, seeded random
+     weights, ``attention_impl="chunked"``, B=8 sequences of 2,048 tokens
+     from ``SyntheticCorpus(32000, seed=0)`` through ``PackedLoader``, 2
+     microbatches, AdamW (lr 1e-3, one warm-up step), 8 steps of
+     ``train_loop``: each step's time, tokens/s, ``model_flops`` over the
+     step time and its share of the bf16 peak of ``analysis/hw.py``, the
+     loss and grad norm, the peak ``max_memory_allocated``; the loss must
+     be finite and fall from the first step to the last (if 80 GB does not
+     hold it: ``remat_policy="full"``, then half the batch, said so); (b)
+     a two-layer cut at full width in fp32 (B=1, S=2,048, so that
+     ``"chunked"`` engages): one ``loss.backward()`` on the card and on the
+     card's host from the same weights and batch, the loss within 1e-5
+     relative and every gradient leaf within 1e-4 x its max|g|, and the
+     card's ``"chunked"`` gradients against its ``"xla"`` ones within the
+     same bound; (c) train -> checkpoint -> resume -> serve at a mid size
+     (TinyLlama at d=512 with 8 heads of its Dh=64, 4 layers, V=32,000):
+     24 steps with a checkpoint every 8 under ``chiprun_out/``, resumed to
+     30 (the resumed loss below the first steps'), then the trained
+     weights served under ``attention_impl="pallas"``: a prefill that
+     launches the sm90 kernel once per layer, and 4 decode steps.
+
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
 without CUDA it exits 1 before doing anything.
@@ -172,6 +198,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -209,6 +236,8 @@ N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
 #: flows) took 312.7 s on the card's host, over the phase's 150 s cap, the
 #: priority-guard points most of it (PERF.md, PR 15).
 M_GRID = 48
+#: Worker processes of the pooled grids (phases 10 and 13c).
+WORKERS = min(os.cpu_count() or 1, 16)
 #: Phases 11-12: service ticks, evenly spaced over the arrival span, and
 #: the budget of the two phases together on the card's host.
 STREAM_TICKS, STREAM_BUDGET_S = 16, 150.0
@@ -262,6 +291,11 @@ FAMILY_RUNS = [("recurrentgemma-9b", None, 4096, 12),
                ("internvl2-76b", 16, 2048, 16),
                ("xlstm-1.3b", None, 2048, 0)]
 FAMILY_B, FAMILY_SRC, FAMILY_BUDGET_S = 8, 2048, 200.0
+#: Phase 15: full-width steps, batch (sequences of TinyLlama's 2,048-token
+#: context) and microbatches; the mid-size run's steps before and after the
+#: resume; the budget of the phase on the card.
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_MB = 8, 8, 2048, 2
+MID_STEPS, MID_RESUME, TRAIN_BUDGET_S = 24, 30, 150.0
 
 
 def log(msg: str) -> None:
@@ -335,6 +369,23 @@ def fa_vs_plain(label, q, k, v, causal, window, quiet=False, phase=7):
     if bad or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash kernel != plain version on {label}")
     return err
+
+
+def dense_layer0_qkv(model, tokens, prefix_embeds=None):
+    """A dense model's first layer's q/k/v for a fresh prefill of
+    ``tokens`` (after ``prefix_embeds``), rotated: what the prefill's
+    first flash kernel launch is given."""
+    import torch
+
+    from repro_torch.models.common import apply_rope
+
+    with torch.inference_mode():
+        h = model._with_prefix(model._embed(tokens), prefix_embeds)
+        B, S = h.shape[:2]
+        pos = torch.arange(S, device=h.device).expand(B, S)
+        q, k, v = model._qkv(model._norm(h, 0, "ln1"), 0)
+        return (apply_rope(q, pos, model.inv_freq, model.rot),
+                apply_rope(k, pos, model.inv_freq, model.rot), v)
 
 
 def main() -> int:
@@ -643,9 +694,13 @@ def main() -> int:
     log(f"[13] phases 1-13 took {time.perf_counter() - t_start:.1f} s")
     family_launches, family_rows = family_phases(torch, dev)
     log(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s")
-    for row in fa_rows:  # phase 8's launches and phase 14's
-        row["launches"] += family_launches[
-            "sm90_bf16" if row["name"] == "flash_attention" else "simt_fp32"]
+    train_launches = train_phases(torch, dev)
+    log(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    for row in fa_rows:  # phase 8's launches, phase 14's and phase 15's
+        kernel = "sm90_bf16" if row["name"] == "flash_attention" \
+            else "simt_fp32"
+        row["launches"] += family_launches[kernel] + train_launches[kernel]
+        row["max_abs_err"] = FA_MAX_ERR[kernel]  # over phases 7, 14, 15
 
     assign_row = {"route": "cuda",
                   "replaces": "src/repro/kernels/coflow_assign.py:38",
@@ -802,17 +857,35 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
                            delta=DELTA, seed=0, device=dev)
     kw = dict(schedulings=policies, materialize="metrics", check="none")
     ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
-    offline = run_batch([grid], ALGORITHMS, backend="numpy", **kw)
-    span_g = offline.filter(algorithm="ours",
-                            scheduling="work-conserving").rows[0].makespan
+    # the online releases span the offline makespan of ours work-conserving,
+    # the grid's first point: run it alone first, then both grids together
+    first = run_batch([grid], ("ours",), backend="numpy",
+                      **{**kw, "schedulings": policies[:1]}).rows[0]
+    span_g = first.makespan
     ogrid = sample_online_instance(trace, N=N_PORTS, M=M_GRID, rates=RATES,
                                    delta=DELTA, span=span_g, seed=0,
                                    device=dev)
-    online = run_batch([ogrid], ALGORITHMS, backend="numpy", **kw)
+    host, t_pool = sync_time(lambda: run_batch(
+        [grid, ogrid], ALGORITHMS, backend="numpy", workers=WORKERS, **kw))
     host_launches = dict(ca.launches_by_kernel)
-    kern = run_batch([grid, ogrid], ("ours", "sunflow-core"), backend="kernel",
-                     **kw)
+    kern, t_kpool = sync_time(lambda: run_batch(
+        [grid, ogrid], ("ours", "sunflow-core"), backend="kernel",
+        workers=WORKERS, **kw))
     grid_launches = dict(ca.launches_by_kernel)
+    offline, online = host.filter(instance=0), host.filter(instance=1)
+    if dataclasses.replace(first, wall_s=0.0) != dataclasses.replace(
+            offline.rows[0], wall_s=0.0):
+        raise AssertionError("the pool's first point differs from its "
+                             "serial run")
+    # the pool against serial runs of the grid's four cheapest points
+    cheap = sorted(host.rows, key=lambda r: r.wall_s)[:4]
+    for r in cheap:
+        one = run_batch([(grid, ogrid)[r.instance]], (r.algorithm,),
+                        seeds=(r.seed,), backend="numpy", **{
+                            **kw, "schedulings": (r.scheduling,)}).rows[0]
+        if dataclasses.replace(one, instance=r.instance, wall_s=0.0) != \
+                dataclasses.replace(r, wall_s=0.0):
+            raise AssertionError(f"pool row {r} != serial row {one}")
     t10 = time.perf_counter() - t10
     if host_launches != {"chain_sm90": 0, "warp": 0} or grid_launches != {
             "chain_sm90": len(kern), "warp": 0}:
@@ -821,13 +894,16 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
                              f"{host_launches}, then {grid_launches}")
     log(f"[10] ablation grid on the M={M_GRID}, N={N_PORTS} trace instance "
         f"({offline.rows[0].n_flows} flows; online releases over its offline "
-        f"makespan {span_g!r}): {len(offline) + len(online) + len(kern)} "
-        f"points in {t10:.1f} s, chain kernel launches {grid_launches} "
-        f"(one per kernel point, none on the host backend)")
-    for mode, idx, host in (("offline", 0, offline), ("online", 1, online)):
-        base = host.filter(algorithm="ours",
-                           scheduling="work-conserving").rows[0].weighted_cct
-        rows = [("numpy", r) for r in host] + [
+        f"makespan {span_g!r}): {len(host) + len(kern)} points in {t10:.1f} "
+        f"s through run_batch(workers={WORKERS}) (spawn pool; fp64 grid "
+        f"{len(host)} points in {t_pool:.1f} s, kernel grid {len(kern)} in "
+        f"{t_kpool:.1f} s), chain kernel launches {grid_launches} counted in "
+        f"the workers (one per kernel point, none on the host backend); the "
+        f"four cheapest fp64 points equal their serial runs but for wall_s")
+    for mode, idx, tab in (("offline", 0, offline), ("online", 1, online)):
+        base = tab.filter(algorithm="ours",
+                          scheduling="work-conserving").rows[0].weighted_cct
+        rows = [("numpy", r) for r in tab] + [
             ("kernel", r) for r in kern.filter(instance=idx)]
         for backend, r in rows:
             log(f"[10]   {mode:7s} {backend:6s} {r.algorithm:12s} "
@@ -1313,11 +1389,12 @@ def oracle_phases(torch, dev, trace, inst, sched, offline64):
     kw = dict(seeds=(3,), schedulings=policies, check="oracle")
     before = dict(ca.launches_by_kernel)
     (host, t_host) = sync_time(lambda: run_batch(
-        [small[dev], osmall], ALGORITHMS, backend="numpy", **kw))
+        [small[dev], osmall], ALGORITHMS, backend="numpy", workers=WORKERS,
+        **kw))
     mid = dict(ca.launches_by_kernel)
     (kern, t_kern) = sync_time(lambda: run_batch(
         [small[dev], osmall], ("ours", "sunflow-core"), backend="kernel",
-        **kw))
+        workers=WORKERS, **kw))
     n_host = {k: mid[k] - before[k] for k in ca.KERNELS}
     n_kern = {k: ca.launches_by_kernel[k] - mid[k] for k in ca.KERNELS}
     if n_host != {"chain_sm90": 0, "warp": 0} or n_kern != {
@@ -1333,8 +1410,9 @@ def oracle_phases(torch, dev, trace, inst, sched, offline64):
     log(f"[13c] run_batch(check=\"oracle\") on the small instance (N=24, "
         f"M=60, {host.rows[0].n_flows} flows), offline and online: "
         f"{len(host)} fp64 points in {t_host:.1f} s and {len(kern)} kernel "
-        f"points in {t_kern:.1f} s, every point held to the oracles and the "
-        f"referee; chain kernel launches {n_kern} (one per kernel point)")
+        f"points in {t_kern:.1f} s (workers={WORKERS}), every point held to "
+        f"the oracles and the referee; chain kernel launches {n_kern} (one "
+        f"per kernel point, counted in the workers)")
     before = ca.launches_by_kernel["chain_sm90"]
     pts = {dev: cross_check(small[dev], "ours", seed=3, backend="kernel")}
     if ca.launches_by_kernel["chain_sm90"] != before + 1:
@@ -1396,8 +1474,8 @@ def family_phases(torch, dev):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.api import build_model, model_class
-    from repro_torch.models.common import (apply_rope, layer_norm,
-                                           param_count, rms_norm, tree_bytes)
+    from repro_torch.models.common import (layer_norm, param_count, rms_norm,
+                                           tree_bytes)
     from repro_torch.serve.engine import build_decode, build_prefill
 
     t14 = time.perf_counter()
@@ -1465,13 +1543,8 @@ def family_phases(torch, dev):
             tokens = batch["tokens"]
             T = tokens.shape[1]
             if cfg.family in ("dense", "moe", "vlm"):
-                h = model._with_prefix(model._embed(tokens),
-                                       batch.get("prefix_embeds"))
-                S = h.shape[1]
-                pos = torch.arange(S, device=dev).expand(FAMILY_B, S)
-                q, k, v = model._qkv(model._norm(h, 0, "ln1"), 0)
-                q = apply_rope(q, pos, model.inv_freq, model.rot)
-                k = apply_rope(k, pos, model.inv_freq, model.rot)
+                q, k, v = dense_layer0_qkv(model, tokens,
+                                           batch.get("prefix_embeds"))
                 fa_vs_plain(f"{cfg.name}: layer 0's q/k/v {tuple(q.shape)} / "
                             f"{tuple(k.shape)} (causal)", q, k, v, True,
                             cfg.window or None, phase=14)
@@ -1705,6 +1778,230 @@ def family_phases(torch, dev):
     return launches, rows
 
 
+def _grad_gap(torch, got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got - want| / max|want| over the leaves, and its leaf."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        scale = float(w.abs().max()) or 1.0
+        gap = float((got[k].to(w.device) - w).abs().max()) / scale
+        if gap > worst:
+            worst, where = gap, k
+    return worst, where
+
+
+def train_phases(torch, dev):
+    """Phase 15: training on the card. Returns the flash kernels' launches
+    in 15(c)'s serving, by kernel."""
+    import gc
+    import shutil
+
+    from repro_torch.analysis import hw
+    from repro_torch.analysis.roofline import count_params, model_flops
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data.pipeline import PackedLoader, SyntheticCorpus
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.api import build_model, model_class
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import build_train_step, loss_and_grads
+
+    t15 = time.perf_counter()
+    full = dataclasses.replace(get_arch("tinyllama-1.1b").config,
+                               attention_impl="chunked")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 15a. TinyLlama-1.1B at full width and depth -------------------
+    n_params = count_params(full)[0]
+    B, cut = TRAIN_B, "none"
+    for attempt in (dict(), dict(remat_policy="full"),
+                    dict(remat_policy="full", half=True)):
+        cfg = dataclasses.replace(
+            full, **{k: v for k, v in attempt.items() if k != "half"})
+        B = TRAIN_B // 2 if attempt.get("half") else TRAIN_B
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            run = train_loop(cfg, steps=TRAIN_STEPS, global_batch=B,
+                             seq_len=TRAIN_S, microbatches=TRAIN_MB,
+                             opt_cfg=OptimizerConfig(
+                                 lr=1e-3, warmup_steps=1,
+                                 total_steps=TRAIN_STEPS),
+                             log_every=0, device=dev, seed=0)
+            break
+        except torch.cuda.OutOfMemoryError as exc:
+            cut = f"{attempt}: {str(exc).splitlines()[0]}"
+            log(f"[15a] out of memory with {attempt or 'no remat'} at B={B}; "
+                f"trying the next fallback")
+            run = None
+    else:
+        raise AssertionError("TinyLlama-1.1B does not train on this card even "
+                             "with full remat at half the batch")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = model_flops(cfg, ShapeSpec("train", "train", TRAIN_S, B))
+    log(f"[15a] TinyLlama-1.1B at full width and depth ({cfg.n_layers} "
+        f"layers, d={cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"kv, d_ff={cfg.d_ff}, V={cfg.vocab}; {n_params:,.0f} parameters), "
+        f"bf16, attention_impl=\"chunked\", remat {cfg.remat_policy}, "
+        f"B={B} x S={TRAIN_S} in {TRAIN_MB} microbatches, AdamW lr 1e-3, "
+        f"{TRAIN_STEPS} steps of train_loop (fallback taken: {cut}); "
+        f"model_flops {flops:.4e} a step")
+    for i, (h, dt) in enumerate(zip(run.history, run.step_s)):
+        rate = flops / dt
+        log(f"[15a]   step {i + 1}: {dt:.3f} s, {B * TRAIN_S / dt:,.0f} "
+            f"tokens/s, {rate / 1e12:.1f} TFLOP/s = "
+            f"{rate / hw.PEAK_FLOPS_BF16:.2%} of the {hw.PEAK_FLOPS_BF16 / 1e12:.0f} "
+            f"TFLOP/s bf16 peak; loss {h['loss']!r}, grad norm "
+            f"{h['grad_norm']!r}, lr {h['lr']!r}")
+    steady = sorted(run.step_s[1:])[len(run.step_s[1:]) // 2]
+    log(f"[15a] median step after the first {steady:.3f} s "
+        f"({flops / steady / hw.PEAK_FLOPS_BF16:.2%} of peak); peak "
+        f"max_memory_allocated {peak:.2f} GiB; stragglers {run.stragglers}")
+    losses = [h["loss"] for h in run.history]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"15a: the loss must be finite and fall: "
+                             f"{losses}")
+    # one more step under the profiler: where the device time goes
+    step_fn = build_train_step(run.model, OptimizerConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MB)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in PackedLoader(
+        SyntheticCorpus(cfg.vocab, seed=0), global_batch=B,
+        seq_len=TRAIN_S)._make_batch(TRAIN_STEPS).items()}
+    wall_ms, kinds, top = device_time_by_kind(
+        torch, lambda: step_fn(run.params, run.opt_state, batch))
+    busy = sum(kinds.values())
+    log(f"[15a] one more step under torch.profiler: wall {wall_ms:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}): "
+        f"matrix products {kinds['matmul']:.1f} ms, other "
+        f"{kinds['other']:.1f} ms")
+    for name, ms, calls in top:
+        log(f"[15a]   {ms:9.1f} ms  {calls:6d} calls  {name}")
+    del run, step_fn, batch
+    free()
+
+    # ---- 15b. card against host, fp32 two-layer cut ---------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cut2 = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    host = build_model(cut2, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+    state = {k: p.detach() for k, p in host.named_parameters()}
+    arrays = PackedLoader(SyntheticCorpus(cut2.vocab, seed=0),
+                          global_batch=1, seq_len=TRAIN_S)._make_batch(0)
+    batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    cls = model_class(cut2.family)
+    card = cls.from_state(cut2, {k: v.to(dev) for k, v in state.items()})
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    def grads(model, batch):
+        loss, g = loss_and_grads(model, lambda: model.loss(batch))
+        return float(loss), g
+
+    (loss_c, g_c), t_card = sync_time(lambda: grads(card, dbatch))
+    t0 = time.perf_counter()
+    loss_h, g_h = grads(host, batch)
+    t_host = time.perf_counter() - t0
+    xla = cls.from_state(dataclasses.replace(cut2, attention_impl="xla"),
+                         {k: v.to(dev) for k, v in state.items()})
+    loss_x, g_x = grads(xla, dbatch)
+    gap_h, where_h = _grad_gap(torch, g_c, g_h)
+    gap_x, where_x = _grad_gap(torch, g_c, g_x)
+    rel_h, rel_x = abs(loss_c - loss_h) / abs(loss_h), \
+        abs(loss_c - loss_x) / abs(loss_x)
+    log(f"[15b] fp32 two-layer cut at full width, B=1 x S={TRAIN_S} "
+        f"(\"chunked\" engages): loss card {loss_c!r}, host {loss_h!r} "
+        f"(relative {rel_h:.2e}), card \"xla\" {loss_x!r} ({rel_x:.2e}); "
+        f"largest gradient gap / max|g|: card vs host {gap_h:.2e} "
+        f"({where_h}), chunked vs xla {gap_x:.2e} ({where_x}); backward "
+        f"{t_card:.3f} s on the card, {t_host:.3f} s on the host")
+    if rel_h > 1e-5 or rel_x > 1e-5 or gap_h > 1e-4 or gap_x > 1e-4:
+        raise AssertionError("15b: the card's loss or gradients leave the "
+                             "host's or the xla path's (1e-5 / 1e-4)")
+    del host, card, xla, g_c, g_h, g_x, state
+    free()
+
+    # ---- 15c. train, checkpoint, resume, serve -------------------------
+    mid = dataclasses.replace(full, name="tinyllama-mid", d_model=512,
+                              n_heads=8, n_kv_heads=4, d_ff=1408,
+                              n_layers=4)
+    ckpt_dir = ROOT / "chiprun_out" / "phase15_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(global_batch=TRAIN_B, seq_len=TRAIN_S, ckpt_dir=str(ckpt_dir),
+              ckpt_every=8, log_every=0, device=dev)
+    run = train_loop(mid, steps=MID_STEPS, opt_cfg=OptimizerConfig(
+        lr=1e-3, total_steps=MID_STEPS, warmup_steps=2), **kw)
+    first = float(np.mean([h["loss"] for h in run.history[:6]]))
+    last = float(np.mean([h["loss"] for h in run.history[-6:]]))
+    run2 = train_loop(mid, steps=MID_RESUME, opt_cfg=OptimizerConfig(
+        lr=1e-3, total_steps=MID_RESUME, warmup_steps=2), **kw)
+    resumed = float(np.mean([h["loss"] for h in run2.history[:3]]))
+    saved = sorted(p.name for p in ckpt_dir.iterdir())
+    log(f"[15c] mid size (d=512, 8 heads, 4 layers, V=32,000, B={TRAIN_B} x "
+        f"{TRAIN_S}): {MID_STEPS} steps, mean loss of the first 6 {first!r}, "
+        f"last 6 {last!r}; resumed from step {MID_STEPS} to {MID_RESUME}: "
+        f"first 3 {resumed!r}; checkpoints kept {saved}; step "
+        f"{np.median(run.step_s):.3f} s (median)")
+    if not (last < first and resumed < first and run2.steps_done ==
+            MID_RESUME and len(run2.history) == MID_RESUME - MID_STEPS):
+        raise AssertionError("15c: train -> checkpoint -> resume failed")
+    served_cfg = dataclasses.replace(mid, attention_impl="pallas")
+    served = model_class(mid.family).from_state(
+        served_cfg, {k: v.to(served_cfg.dtype) for k, v in
+                     run2.params.items()})
+    prompts = torch.from_numpy(PackedLoader(
+        SyntheticCorpus(mid.vocab, seed=1), global_batch=2,
+        seq_len=TRAIN_S)._make_batch(0)["tokens"]).to(dev)
+    fa.launches = 0
+    fa.launches_by_kernel = dict.fromkeys(fa.KERNELS, 0)
+    cache = served.make_caches(2, TRAIN_S + 4)
+    logits, cache = served.prefill(cache, {"tokens": prompts})
+    prefill_launches = dict(fa.launches_by_kernel)
+    outs, seq = [logits], prompts
+    for _ in range(4):
+        tok = outs[-1][:, -1].argmax(-1)[:, None]
+        seq = torch.cat([seq, tok], dim=1)
+        logits, cache = served.decode_step(cache, tok)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches_by_kernel)
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    log(f"[15c] served the trained weights (attention_impl=\"pallas\"): "
+        f"prefill of 2 x {TRAIN_S} tokens, flash launches {prefill_launches} "
+        f"(one sm90 launch per layer), then 4 decode steps "
+        f"(launches {launches}), logits finite {finite}, shape "
+        f"{tuple(outs[-1].shape)}")
+    if prefill_launches != {"sm90_bf16": mid.n_layers, "simt_fp32": 0} or \
+            launches != prefill_launches or not finite or \
+            tuple(outs[-1].shape) != (2, 1, mid.vocab):
+        raise AssertionError("15c: serving the trained model failed")
+    # the kernel at this prefill's shape, and the served logits against
+    # the model's forward pass over the same tokens (as phase 8)
+    q, k, v = dense_layer0_qkv(served, prompts)
+    fa_vs_plain(f"the served model's layer-0 q/k/v {tuple(q.shape)} / "
+                f"{tuple(k.shape)} (causal)", q, k, v, True,
+                mid.window or None, phase="15c")
+    full_logits = served._forward_train({"tokens": seq}, last=True)
+    got, ref = logits[:, -1].float(), full_logits[:, -1, :mid.vocab].float()
+    err = float((got - ref).abs().max())
+    bad = int((~torch.isclose(got, ref, atol=SERVE_TOL,
+                              rtol=SERVE_TOL)).sum())
+    log(f"[15c] last decode logits vs _forward_train on all {seq.shape[1]} "
+        f"tokens: max|diff| {err:.4f}, {bad} of {ref.numel():,} outside "
+        f"atol=rtol={SERVE_TOL}; logits |max| {float(ref.abs().max()):.3f}")
+    if bad:
+        raise AssertionError("15c: the served model's decode logits differ "
+                             "from its forward pass")
+    del run, run2, served, cache, q, k, v, full_logits
+    shutil.rmtree(ckpt_dir, ignore_errors=True)  # 3 x 0.6 GB
+    free()
+    t15 = time.perf_counter() - t15
+    log(f"[15] phase 15 took {t15:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
+    if t15 > TRAIN_BUDGET_S:
+        log("[15] over the budget: 15a's steps are the first cut")
+    return launches
+
+
 def device_time_by_kind(torch, fn):
     """Run ``fn`` under ``torch.profiler``; (wall ms, {kind: device ms},
     [(kernel, device ms, calls)] top 8). Kinds: the flash kernel, matrix
@@ -1750,7 +2047,7 @@ def serve_phases(torch, dev, built):
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.hazards import FLASH_SHAPES
-    from repro_torch.models.common import apply_rope, param_count
+    from repro_torch.models.common import param_count
     from repro_torch.models.dense import DenseLM
     from repro_torch.serve.engine import build_decode, build_prefill
 
@@ -1819,10 +2116,7 @@ def serve_phases(torch, dev, built):
         f"vocab {cfg.vocab}, {cfg.dtype}; {param_count(model):,} weights "
         f"drawn on the card in {t_build:.2f} s")
     with torch.inference_mode():
-        pos = torch.arange(SERVE_S, device=dev).expand(SERVE_B, SERVE_S)
-        q, k, v = model._qkv(model._norm(model._embed(prompts), 0, "ln1"), 0)
-        q = apply_rope(q, pos, model.inv_freq, model.rot)
-        k = apply_rope(k, pos, model.inv_freq, model.rot)
+        q, k, v = dense_layer0_qkv(model, prompts)
         fa_vs_plain(f"layer-0 q/k/v of the prefill {tuple(q.shape)} / "
                     f"{tuple(k.shape)}", q, k, v, True, None)
         times = {}

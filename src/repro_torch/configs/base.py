@@ -1,8 +1,9 @@
 """Config substrate: shape specs and arch specs.
 
-Port of ``repro.configs.base``. ``input_specs`` and ``cache_specs`` (the
-dry run's abstract stand-ins) wait for the ``launch/`` item (ROADMAP
-queue 1, item 10).
+Port of ``repro.configs.base``: ``ShapeSpec`` and ``SHAPES`` (what
+``analysis.roofline.model_flops`` reads), ``ArchSpec``. ``input_specs`` and
+``cache_specs`` (the dry run's abstract stand-ins) wait for
+``launch/dryrun.py`` (ROADMAP queue 1, item 9.5).
 """
 from __future__ import annotations
 

@@ -5,23 +5,27 @@ scheduling policies (x seeds) to one ``SweepRow`` of metrics each, in grid
 order. An instance may be an ``OnlineInstance`` (or ``releases=`` may give
 its release times), and then its points run the online engine.
 
-Points run one after another in this process. A pool of worker processes
-(the reference's ``workers > 1``) is not ported: forking a process that
-holds a CUDA context is unsafe, and a spawn pool over one card is later
-work (ROADMAP queue 1, item 4). ``check="oracle"`` holds every point to
-the reference's oracles through ``engine.cross_check`` /
-``cross_check_online``, as the reference does.
+``workers > 1`` runs the points in a pool of worker processes started by
+``spawn`` (a forked child of a process that holds a CUDA context cannot
+use it). Only host data crosses to a worker: each point's instance as numpy
+arrays and the name of its device, where the worker rebuilds it. Each
+worker returns its row with the assignment kernels' launches it made, and
+the parent adds those to ``kernels.coflow_assign``'s counters.
+``check="oracle"`` holds every point to the reference's oracles through
+``engine.cross_check`` / ``cross_check_online``, as the reference does.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
+import multiprocessing as mp
 import time
 from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
-from .coflow import Instance, OnlineInstance
+from .coflow import Instance, OnlineInstance, instance_from_arrays
 from .engine import (BACKENDS, cross_check, cross_check_online, run_fast,
                      run_fast_metrics, run_fast_online)
 from .scheduler import ALGORITHMS, tail_quantile, weighted_sum
@@ -150,6 +154,53 @@ def _run_one(idx: int, inst: Instance, rel: torch.Tensor | None, alg: str,
                          s.n_flows, wall)
 
 
+def _host_point(idx: int, inst: Instance, rel: torch.Tensor | None,
+                *rest) -> tuple:
+    """A grid point with its instance as host arrays and its device name:
+    what a worker process is sent."""
+    host = tuple(t.detach().cpu().numpy()
+                 for t in (inst.demand, inst.weights, inst.cids, inst.rates))
+    return (idx, host, inst.delta, str(inst.device),
+            None if rel is None else rel.detach().cpu().numpy(), *rest)
+
+
+def _init_worker() -> None:
+    # one thread each: the pool is the parallelism
+    torch.set_num_threads(1)
+
+
+def _run_point(point: tuple) -> tuple[SweepRow, dict[str, int]]:
+    """A worker's grid point: the instance rebuilt on its device, the row,
+    and the assignment kernels' launches of this point by kernel."""
+    from ..kernels import coflow_assign as ca
+
+    idx, host, delta, device, rel, *rest = point
+    inst = instance_from_arrays(*host, delta, device=device)
+    rel_t = None if rel is None else torch.as_tensor(
+        rel, dtype=torch.float64, device=inst.device)
+    before = dict(ca.launches_by_kernel)
+    row = _run_one(idx, inst, rel_t, *rest)
+    return row, {k: n - before.get(k, 0)
+                 for k, n in ca.launches_by_kernel.items()}
+
+
+def _run_pool(grid: list[tuple], workers: int) -> list[SweepRow]:
+    """The points through a spawn pool, rows in grid order; the workers'
+    kernel launches are added to this process's counters."""
+    from ..kernels import coflow_assign as ca
+
+    ctx = mp.get_context("spawn")
+    with cf.ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
+                                initializer=_init_worker) as ex:
+        out = list(ex.map(_run_point, [_host_point(*p) for p in grid],
+                          chunksize=max(1, len(grid) // (4 * workers))))
+    for _, launches in out:
+        for name, n in launches.items():
+            ca.launches += n
+            ca.launches_by_kernel[name] += n
+    return [row for row, _ in out]
+
+
 def run_batch(
     instances: Sequence[Instance | OnlineInstance],
     algorithms: Iterable[str] = ALGORITHMS,
@@ -184,8 +235,16 @@ def run_batch(
     launches the kernel once), ``"none"`` skips both. ``backend`` is the assignment backend of
     every point (:data:`engine.BACKENDS`). ``materialize="metrics"`` stops
     each point at its CCTs, with no ``Schedule``, and requires
-    ``check="none"``. ``workers`` in ``(None, 0, 1)`` runs the points
-    serially, in this process.
+    ``check="none"``.
+
+    ``workers``: 0, 1 or ``None`` runs the points serially, in this
+    process; ``workers > 1`` runs them in a pool of that many spawned
+    processes (see the module docstring). Rows come back in grid order
+    either way, and equal, but for ``wall_s``. ``None`` stays serial, where
+    the reference picks a pool for grids of four points or more: every
+    worker imports torch and, on the card, makes its own CUDA context,
+    seconds of start-up that a small grid does not repay. That is a
+    difference in speed only.
     """
     algorithms = tuple(algorithms)
     schedulings = tuple(schedulings)
@@ -211,12 +270,8 @@ def run_batch(
         raise ValueError(
             f"releases must align with instances: "
             f"got {len(releases)} vs {len(instances)}")
-    if workers is not None and workers > 1:
-        raise NotImplementedError(
-            "run_batch(workers > 1) needs a pool of worker processes, which "
-            "is not ported yet: ROADMAP queue 1, item 4")
 
-    rows = []
+    grid = []
     for idx, inst in enumerate(instances):
         rel = None
         if isinstance(inst, OnlineInstance):
@@ -228,6 +283,8 @@ def run_batch(
             for alg in algorithms:
                 scheds = ("sunflow",) if alg in _SUNFLOW_ALGS else schedulings
                 for sched in scheds:
-                    rows.append(_run_one(idx, inst, rel, alg, sched, seed,
-                                         check, backend, materialize))
-    return ResultTable(rows)
+                    grid.append((idx, inst, rel, alg, sched, seed, check,
+                                 backend, materialize))
+    if workers and workers > 1 and len(grid) > 1:
+        return ResultTable(_run_pool(grid, workers))
+    return ResultTable([_run_one(*p) for p in grid])

@@ -1,10 +1,12 @@
-"""The model zoo for serving, in PyTorch: every family of the reference.
+"""The model zoo, in PyTorch: every family of the reference, served and
+trained.
 
 Port of ``repro.models``: ``api`` (``ModelConfig``, ``build_model``,
 ``model_class``), ``common`` (norms, RoPE, SwiGLU, GeLU MLP, the causal
 conv, loss, seeded initialisation, the parameter tree), ``attention``
 (``attend_xla``, ``attend`` with the CUDA flash-attention kernel behind
-``impl="pallas"``, the KV cache), ``family`` (``FamilyLM``, what the
+``impl="pallas"`` and ``attend_chunked`` with its custom VJP, the KV
+cache), ``family`` (``FamilyLM``, what the
 families share), ``dense`` (``DenseLM``: dense and vlm), ``moe``
 (``MoELM``), ``rglru`` (``GriffinLM``: hybrid), ``encdec`` (``EncDecLM``:
 audio), ``xlstm`` (``XLSTMLM``: ssm) and ``weights`` (``params_from_jax``).

@@ -4,14 +4,16 @@ Port of ``repro.models.api``. ``ModelConfig`` has the reference's fields and
 defaults; ``dtype`` is a ``torch.dtype``. A model is an ``nn.Module`` that
 holds its weights and offers::
 
-  loss(batch)                    -> scalar fp32 mean CE (forward only)
+  loss(batch)                    -> scalar fp32 mean CE, differentiable
   prefill(cache, batch)          -> (last_logits, cache)
   decode_step(cache, tokens)     -> (logits, cache)
   make_caches(batch, s_max)      -> cache
 
 Every family of the reference is ported: dense and vlm (``DenseLM``), moe
 (``MoELM``), hybrid (``GriffinLM``), audio (``EncDecLM``) and ssm
-(``XLSTMLM``).
+(``XLSTMLM``). ``loss`` trains under ``attention_impl="xla"`` or
+``"chunked"``; ``"pallas"`` (the forward-only flash kernel) raises under
+autograd, and serving runs it under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -59,10 +61,10 @@ class ModelConfig:
     n_prefix_tokens: int = 0
     frontend: str = ""
     # --- execution ---
-    attention_impl: str = "xla"  # "xla" | "pallas" (the CUDA flash kernel)
+    attention_impl: str = "xla"  # "xla" | "chunked" | "pallas" (CUDA flash)
     vocab_pad_to: int = 0  # pad embedding rows (logits of the pad masked)
     scan_layers: bool = True  # read by the reference only; the port loops
-    remat_policy: str = "none"
+    remat_policy: str = "none"  # "none" | "full" | "dots", per layer
     dtype: torch.dtype = torch.bfloat16
 
     @property

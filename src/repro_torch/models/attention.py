@@ -6,9 +6,17 @@ Port of ``repro.models.attention``. Implementations behind ``attend``:
     positions, window and ``kv_valid``; the oracle, and the path of every
     cached (decode) call;
   - ``impl="pallas"``: the hand-written CUDA flash-attention kernel through
-    ``kernels.ops.flash_attention`` (its plain version on the CPU). It is
-    self-attention over positions 0..S-1 and raises on anything else;
-  - ``impl="chunked"`` waits for the training slice.
+    ``kernels.ops.flash_attention`` (its plain version on the CPU). It
+    attends over implicit positions and raises on positions or
+    ``kv_valid``; it is forward only, as the reference's kernel, so under
+    autograd it raises ``ValueError`` (train with ``"xla"`` or
+    ``"chunked"``);
+  - ``impl="chunked"``: the flash algorithm in plain PyTorch
+    (:func:`attend_chunked`), a ``torch.autograd.Function`` with the
+    reference's custom VJP, which recomputes each kv chunk in the backward
+    and carries only ``dq``. As in the reference it takes self-attention
+    with ``Sq >= 2048`` and no ``kv_valid`` whose length a chunk divides;
+    every other call goes to ``attend_xla``.
 
 Shapes follow ``(B, S, H, Dh)`` throughout.
 """
@@ -21,8 +29,9 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as kops
 
-__all__ = ["NEG_INF", "KVCache", "attend", "attend_xla", "kv_cache_init",
-           "kv_cache_layer_update", "kv_cache_slot_positions"]
+__all__ = ["NEG_INF", "CHUNK_KV", "KVCache", "attend", "attend_xla",
+           "attend_chunked", "kv_cache_init", "kv_cache_layer_update",
+           "kv_cache_slot_positions"]
 
 #: The reference's finite mask value, -0.7 * finfo(float32).max.
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -85,12 +94,127 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "xla":
         return attend_xla(q, k, v, **kw)
     if impl == "pallas":
+        if torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            raise ValueError(
+                'attention_impl="pallas" has no backward: the flash kernel '
+                'is forward only, as the reference\'s; train with "xla" or '
+                '"chunked"')
         return kops.flash_attention(q, k, v, **kw)
     if impl == "chunked":
-        raise NotImplementedError(
-            "attend_chunked and its custom VJP come with the training slice "
-            "(ROADMAP queue 1, item 10)")
+        if (kw.get("kv_valid") is None and q.shape[1] == k.shape[1]
+                and q.shape[1] >= 2048 and _pick_chunk(k.shape[1])):
+            return attend_chunked(q, k, v, causal=kw.get("causal", True),
+                                  window=kw.get("window"),
+                                  softmax_scale=kw.get("softmax_scale"))
+        return attend_xla(q, k, v, **kw)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash-algorithm) attention with the reference's custom VJP
+# ---------------------------------------------------------------------------
+
+CHUNK_KV = 1024
+
+
+def _pick_chunk(sk: int) -> int:
+    for c in (CHUNK_KV, 512, 256, 128, 64):
+        if sk % c == 0:
+            return c
+    return 0
+
+
+def _chunk_scores(qf, kk, c0, chunk, causal, window):
+    """Masked fp32 scores ``(B, H, Sq, chunk)`` of the scaled fp32 queries
+    against the kv chunk starting at ``c0``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kk.float())
+    if causal or window is not None:
+        qpos = torch.arange(qf.shape[1], device=qf.device)[:, None]
+        kpos = c0 + torch.arange(chunk, device=qf.device)[None, :]
+        mask = torch.ones((qf.shape[1], chunk), dtype=torch.bool,
+                          device=qf.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        s = s.masked_fill(~mask, NEG_INF)
+    return s
+
+
+def _chunked_fwd(q, k, v, scale, causal, window, chunk):
+    """Returns ``(out, lse)``: ``out (B, Sq, H, Dh)`` fp32 and ``lse (B, H,
+    Sq)``. k/v are already head-repeated."""
+    b, sq, h, dh = q.shape
+    qf = q.float() * scale
+    m_run = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        s = _chunk_scores(qf, k[:, c0:c0 + chunk], c0, chunk, causal, window)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_run - m_new)
+        l_run = alpha * l_run + p.sum(dim=-1)
+        acc = acc * alpha.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqk,bkhd->bqhd", p, v[:, c0:c0 + chunk].float())
+        m_run = m_new
+    safe = torch.where(l_run == 0, torch.ones_like(l_run), l_run)
+    out = acc / safe.transpose(1, 2)[..., None]
+    return out, m_run + torch.log(safe)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The reference's ``_chunked_attn`` with its custom VJP. The backward
+    recomputes each kv chunk's probabilities from the saved ``lse``: no
+    pass holds more than one ``(B, H, Sq, chunk)`` block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, chunk):
+        out, lse = _chunked_fwd(q, k, v, scale, causal, window, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, window, chunk)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, window, chunk = ctx.args
+        qf = q.float() * scale
+        do = dout.float()
+        delta = torch.einsum("bqhd,bqhd->bhq", do, out)  # rowsum(dout*out)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for c0 in range(0, k.shape[1], chunk):
+            kk, vv = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+            s = _chunk_scores(qf, kk, c0, chunk, causal, window)
+            p = torch.exp(s - lse[..., None])  # (B, H, Sq, chunk)
+            dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do))
+            dp = torch.einsum("bqhd,bkhd->bhqk", do, vv.float())
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kk.float()) * scale
+            dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+        return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+                torch.cat(dvs, dim=1).to(v.dtype), None, None, None, None)
+
+
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int | None = None,
+                   softmax_scale: float | None = None) -> torch.Tensor:
+    """Streaming self-attention over positions 0..S-1, ``(B, Sq, H, Dh)``
+    in ``q.dtype``. The kv heads are repeated before the function, so their
+    gradients sum over each group through ``_repeat_kv``, as in the
+    reference."""
+    h, kvh = q.shape[2], k.shape[2]
+    k = _repeat_kv(k, h // kvh)
+    v = _repeat_kv(v, h // kvh)
+    scale = softmax_scale if softmax_scale is not None \
+        else q.shape[-1] ** -0.5
+    chunk = _pick_chunk(k.shape[1])
+    if not chunk:
+        raise ValueError(f"no kv chunk divides Sk={k.shape[1]}")
+    return _ChunkedAttention.apply(q, k, v, scale, causal, window, chunk)
 
 
 # ---------------------------------------------------------------------------

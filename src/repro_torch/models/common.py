@@ -8,13 +8,14 @@ Port of ``repro.models.common``. Conventions kept from the reference:
   - compute dtype and weights bf16 by default; norm statistics, softmax and
     the loss in fp32.
 
-``constrain`` is the identity (no mesh yet); ``maybe_remat`` waits for the
-training slice.
+``constrain`` is the identity (no mesh yet). ``maybe_remat`` is the
+reference's per-layer activation checkpointing, in ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Iterable, Mapping
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 __all__ = ["ParamFactory", "rms_norm", "layer_norm", "rope_frequencies",
            "apply_rope", "swiglu", "gelu_mlp", "causal_depthwise_conv",
            "conv_step", "softmax_cross_entropy", "param_count", "tree_bytes",
-           "constrain", "register_tree"]
+           "constrain", "register_tree", "maybe_remat", "at_least"]
 
 #: Elements above which ``ParamFactory.dense`` draws a leaf slice by slice
 #: along its leading dims (4 GiB as one fp32 temporary). Every leaf of the
@@ -143,6 +144,56 @@ def register_tree(module: torch.nn.Module,
                 mod.add_module(key, build(val))
 
     attach(module, tree)
+
+
+def at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)`` with JAX's gradient: where ``x == lo`` each
+    side takes half (``clamp`` would give ``x`` all of it; the sLSTM's
+    normaliser is exactly 1 at its first step)."""
+    return torch.maximum(x, torch.full_like(x, lo))
+
+
+# ---------------------------------------------------------------------------
+# Remat (activation checkpointing), one layer at a time
+# ---------------------------------------------------------------------------
+
+#: The products that ``"dots"`` keeps: plain matmuls, without batch dims,
+#: as the reference's ``dots_with_no_batch_dims_saveable``.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(body: Callable, policy: str) -> Callable:
+    """``body`` (one layer) wrapped per the config's remat policy.
+
+    ``"none"``: as it is. ``"full"``: ``torch.utils.checkpoint`` keeps the
+    layer's inputs and recomputes the rest in the backward. ``"dots"``: a
+    selective checkpoint that keeps the matmul outputs and recomputes the
+    rest. Remat changes memory, never the values; without autograd (serving)
+    every policy runs ``body`` as it is.
+    """
+    if policy == "none":
+        return body
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {} if policy == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from .api import ModelConfig
 from .attention import (KVCache, attend, kv_cache_init, kv_cache_layer_update,
                         kv_cache_slot_positions)
-from .common import (ParamFactory, apply_rope, layer_norm, rms_norm,
-                     rope_frequencies, softmax_cross_entropy)
+from .common import (ParamFactory, apply_rope, layer_norm, maybe_remat,
+                     rms_norm, rope_frequencies)
 from .family import FamilyLM
 
 __all__ = ["DenseLM", "param_shapes"]
@@ -164,13 +164,11 @@ class DenseLM(FamilyLM):
         return torch.cat([prefix_embeds.to(h.device, self.cfg.dtype), h],
                          dim=1)
 
-    @torch.inference_mode()
-    def _forward_train(self, batch: dict, *, last: bool = False
-                       ) -> torch.Tensor:
-        """Logits ``(B, S, V)`` of the whole sequence (forward only); with a
-        vision prefix, of the text positions only. ``last=True`` gives the
-        last position's ``(B, 1, V)`` alone (a full-width check would not
-        hold every position's logits)."""
+    def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of the whole sequence; with a vision prefix,
+        of the text positions only. ``last=True`` gives the last position's
+        ``(B, 1, V)`` alone. Each layer is remat'd per
+        ``cfg.remat_policy``."""
         cfg = self.cfg
         h = self._embed(batch["tokens"])
         if cfg.n_prefix_tokens:
@@ -178,18 +176,13 @@ class DenseLM(FamilyLM):
         B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
+        block = maybe_remat(self._block_train, cfg.remat_policy)
         for layer in range(cfg.n_layers):
-            h = self._block_train(h, layer, positions)
+            h = block(h, layer, positions)
         if cfg.n_prefix_tokens:
             h = h[:, cfg.n_prefix_tokens:]
         return self._logits(self._norm(h[:, -1:] if last else h, None,
                                        "ln_f"))
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
-        logits = self._forward_train(batch)
-        labels = batch["labels"].to(logits.device)
-        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
 
     # ----------------------------------------------------------------- serve
     def make_caches(self, batch: int, s_max: int) -> KVCache:

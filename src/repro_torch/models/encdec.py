@@ -33,7 +33,7 @@ import torch
 from .api import ModelConfig
 from .attention import attend, kv_cache_layer_update, kv_cache_slot_positions
 from .common import (ParamFactory, apply_rope, gelu_mlp, layer_norm,
-                     rope_frequencies, softmax_cross_entropy)
+                     maybe_remat, rope_frequencies)
 from .family import FamilyLM
 
 __all__ = ["EncDecLM", "EncDecCache", "param_shapes"]
@@ -129,17 +129,22 @@ class EncDecLM(FamilyLM):
                       q_positions=positions, kv_positions=positions)
 
     # ---------------------------------------------------------------- encoder
+    def _enc_layer(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        lp = self._lp("enc", layer)
+        hn = layer_norm(h, lp["sa_ln"], lp["sa_lnb"])
+        q, k, v = self._qkv(hn, lp["sa_wq"], lp["sa_wk"], lp["sa_wv"])
+        h = h + self._flat(self._attend(q, k, v, causal=False)) @ lp["sa_wo"]
+        hn = layer_norm(h, lp["ln_m"], lp["ln_mb"])
+        return h + gelu_mlp(hn, lp["w_in"], lp["b_in"], lp["w_out"],
+                            lp["b_out"])
+
     def encode(self, src_frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over ``src_frames``; each layer remat'd per
+        ``cfg.remat_policy`` under autograd."""
         h = src_frames.to(self.device, self.cfg.dtype)
+        layer_fn = maybe_remat(self._enc_layer, self.cfg.remat_policy)
         for layer in range(self.cfg.enc_layers):
-            lp = self._lp("enc", layer)
-            hn = layer_norm(h, lp["sa_ln"], lp["sa_lnb"])
-            q, k, v = self._qkv(hn, lp["sa_wq"], lp["sa_wk"], lp["sa_wv"])
-            h = h + self._flat(self._attend(q, k, v, causal=False)) \
-                @ lp["sa_wo"]
-            hn = layer_norm(h, lp["ln_m"], lp["ln_mb"])
-            h = h + gelu_mlp(hn, lp["w_in"], lp["b_in"], lp["w_out"],
-                             lp["b_out"])
+            h = layer_fn(h, layer)
         return layer_norm(h, self.ln_enc, self.ln_encb)
 
     # ---------------------------------------------------------------- decoder
@@ -170,31 +175,29 @@ class EncDecLM(FamilyLM):
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         return self._masked_logits(h, self.unembed)
 
-    @torch.inference_mode()
-    def _forward_train(self, batch: dict, *, last: bool = False
-                       ) -> torch.Tensor:
-        """Logits ``(B, St, V)`` of the whole target (forward only), or of
-        its last position alone when ``last``."""
+    def _dec_layer(self, h, layer, enc_out, qpos):
+        lp = self._lp("dec", layer)
+        q, k, v = self._self_qkv(h, lp, qpos)
+        o = self._attend(q, k, v, causal=True, positions=qpos)
+        h = h + self._flat(o) @ lp["sa_wo"]
+        return self._dec_tail(h, lp, *self._cross_kv(enc_out, lp))
+
+    def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
+        """Logits ``(B, St, V)`` of the whole target, or of its last
+        position alone when ``last``. Each decoder layer (with its
+        cross-attention's K/V projection) is remat'd per
+        ``cfg.remat_policy``."""
         enc_out = self.encode(batch["src_frames"])
         h = self._embed(batch["tokens"])
         B, St, _ = h.shape
         qpos = torch.arange(St, dtype=torch.int32,
                             device=h.device).expand(B, St)
+        layer_fn = maybe_remat(self._dec_layer, self.cfg.remat_policy)
         for layer in range(self.cfg.dec_layers):
-            lp = self._lp("dec", layer)
-            q, k, v = self._self_qkv(h, lp, qpos)
-            o = self._attend(q, k, v, causal=True, positions=qpos)
-            h = h + self._flat(o) @ lp["sa_wo"]
-            h = self._dec_tail(h, lp, *self._cross_kv(enc_out, lp))
+            h = layer_fn(h, layer, enc_out, qpos)
         if last:
             h = h[:, -1:]
         return self._logits(layer_norm(h, self.ln_f, self.ln_fb))
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
-        logits = self._forward_train(batch)
-        labels = batch["labels"].to(logits.device)
-        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
 
     # ----------------------------------------------------------------- serve
     def make_caches(self, batch: int, s_max: int, *, s_src: int = 0

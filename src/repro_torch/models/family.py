@@ -11,9 +11,16 @@ A family subclasses :class:`FamilyLM` and gives
     biases);
   - ``_init_leaf``, the reference's initialiser of each leaf.
 
-Leaves are frozen ``nn.Parameter``s registered by
-:func:`common.register_tree`, so ``state_dict()`` has the reference's names
-and ``models.weights.params_from_jax`` copies each leaf once.
+Leaves are ``nn.Parameter``s registered by :func:`common.register_tree`,
+so ``state_dict()`` has the reference's names and
+``models.weights.params_from_jax`` copies each leaf once. They are frozen
+(``requires_grad=False``) until a training step asks for their gradients
+(``train.step.build_train_step``).
+
+A family's forward is ``_forward(batch, last=False)``, differentiable:
+``loss`` runs it. ``_forward_train`` is the same forward under
+``torch.inference_mode``, what serving and the agreement checks call, as
+the serving entry points (``prefill``, ``decode_step``) run under it.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .api import ModelConfig
-from .common import ParamFactory, register_tree
+from .common import ParamFactory, register_tree, softmax_cross_entropy
 
 __all__ = ["FamilyLM"]
 
@@ -99,6 +106,23 @@ class FamilyLM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.to(self.device).long()].to(self.cfg.dtype)
+
+    def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.inference_mode()
+    def _forward_train(self, batch: dict, *, last: bool = False
+                       ) -> torch.Tensor:
+        """:meth:`_forward` without autograd: logits of the whole sequence
+        (``last=True``: of its last position alone; a full-width check
+        would not hold every position's logits)."""
+        return self._forward(batch, last=last)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean fp32 cross-entropy over the labels >= 0; differentiable."""
+        logits = self._forward(batch)
+        labels = batch["labels"].to(logits.device)
+        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
 
     def _masked_logits(self, h: torch.Tensor, table: torch.Tensor
                        ) -> torch.Tensor:

@@ -14,7 +14,9 @@ Capacity makes the function depend on how tokens are grouped: a prompt of
 S = 2,048 routes in groups of 256, a decode token alone (gs = 1), so the
 whole-sequence forward is not the cached path's function at the last
 position, in the reference as here. ``constrain`` is the identity (no
-mesh); the load-balance auxiliary loss comes with training.
+mesh). ``aux_load_balance_loss`` is the reference's Switch-style
+load-balance auxiliary for training (the train step does not add it, as
+in the reference).
 """
 from __future__ import annotations
 
@@ -102,3 +104,26 @@ class MoELM(DenseLM):
                          self._w("w_down", layer))
         out = torch.einsum("bgtec,bgecd->bgtd", combine.to(hn.dtype), y)
         return out.reshape(B, S, D)
+
+    def aux_load_balance_loss(self, batch: dict) -> torch.Tensor:
+        """Switch-style load-balance auxiliary, the mean over layers of
+        ``E * sum_e(frac_tokens_e * frac_probs_e)``: each layer's router
+        (fp32) reads that layer's input residual (before its norm), top-1
+        by ``argmax``. Differentiable through the router probabilities."""
+        cfg = self.cfg
+        h = self._embed(batch["tokens"])
+        B, S, _ = h.shape
+        E = cfg.n_experts
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device).expand(B, S)
+        acc = torch.zeros((), dtype=torch.float32, device=h.device)
+        for layer in range(cfg.n_layers):
+            logits = torch.einsum("bsd,de->bse", h.float(),
+                                  self._w("w_router", layer).float())
+            probs = torch.softmax(logits, dim=-1)
+            ids = torch.argmax(probs, dim=-1)
+            frac_tokens = F.one_hot(ids, E).float().mean(dim=(0, 1))
+            frac_probs = probs.mean(dim=(0, 1))
+            acc = acc + E * torch.sum(frac_tokens * frac_probs)
+            h = self._block_train(h, layer, positions)
+        return acc / cfg.n_layers

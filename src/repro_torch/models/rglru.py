@@ -38,9 +38,9 @@ import torch.nn.functional as F
 
 from .api import ModelConfig
 from .attention import attend, kv_cache_layer_update, kv_cache_slot_positions
-from .common import (ParamFactory, apply_rope, causal_depthwise_conv,
-                     conv_step, rms_norm, rope_frequencies,
-                     softmax_cross_entropy)
+from .common import (ParamFactory, apply_rope, at_least,
+                     causal_depthwise_conv, conv_step, maybe_remat, rms_norm,
+                     rope_frequencies)
 from .family import FamilyLM
 
 __all__ = ["GriffinLM", "GriffinCache", "param_shapes"]
@@ -108,7 +108,7 @@ def _rglru_gates(r: torch.Tensor, i: torch.Tensor, x: torch.Tensor,
                  lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(a, sqrt(1 - a^2) * (i * x)) of the recurrence, fp32."""
     a = torch.exp(-RGLRU_C * F.softplus(lam) * r)
-    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x)
+    return a, torch.sqrt(at_least(1.0 - a * a, 1e-12)) * (i * x)
 
 
 def _rglru_parallel(x, r, i, lam):
@@ -244,29 +244,31 @@ class GriffinLM(FamilyLM):
         return self._mlp(h + mix, lp)
 
     # ----------------------------------------------------------------- train
-    @torch.inference_mode()
-    def _forward_train(self, batch: dict, *, last: bool = False
-                       ) -> torch.Tensor:
-        """Logits ``(B, S, V)`` of the whole sequence (forward only), or of
-        the last position alone when ``last``."""
+    def _sup_train(self, h, s, positions):
+        """Super-block ``s``: its pattern's layers in order."""
+        for slot, kind in enumerate(self.pattern):
+            h = self._block_train(h, self._layer(f"slot{slot}", s), kind,
+                                  positions)
+        return h
+
+    def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of the whole sequence, or of the last
+        position alone when ``last``. Each super-block is remat'd per
+        ``cfg.remat_policy`` (the tail layers are not), as in the
+        reference."""
         h = self._embed(batch["tokens"])
         B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
-        for kind, lp, _, _ in self._layers():
-            h = self._block_train(h, lp, kind, positions)
+        sup = maybe_remat(self._sup_train, self.cfg.remat_policy)
+        for s in range(self.n_sup):
+            h = sup(h, s, positions)
         for t, kind in enumerate(self.tail):
             h = self._block_train(h, self._layer(f"tail{t}", None), kind,
                                   positions)
         if last:
             h = h[:, -1:]
         return self._masked_logits(rms_norm(h, self.ln_f), self.embed)
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
-        logits = self._forward_train(batch)
-        labels = batch["labels"].to(logits.device)
-        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
 
     # ----------------------------------------------------------------- serve
     def make_caches(self, batch: int, s_max: int) -> GriffinCache:

@@ -13,12 +13,15 @@ sLSTM block (all mLSTM when it is 0), stacked as ``m.* (NS, PM, ...)`` and
     operands accumulate in fp32 (the operands are widened, which is exact,
     where the reference asks for an fp32 result).
   - sLSTM: scalar memory with a block-diagonal (per-head) recurrence and a
-    stabiliser, then a 4/3 GeLU MLP; a plain forward scan over time.
+    stabiliser, then a 4/3 GeLU MLP; a plain forward scan over time. Under
+    autograd the scan is ``_SLSTMScan``, the reference's custom VJP: the
+    forward keeps each step's incoming state, the backward scans in
+    reverse, recomputing one step at a time, and the recurrent weight's
+    gradient is one contraction after the loop.
 
 Serving keeps the O(1) recurrent state ``XLSTMState``. As in the reference,
 a prefill starts every state and conv from zeros. No attention, so no
-kernel: the large products are ``torch.matmul``/``einsum``. The sLSTM's
-training gradient (the reference's custom VJP) comes with training.
+kernel: the large products are ``torch.matmul``/``einsum``.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from .api import ModelConfig
-from .common import (ParamFactory, causal_depthwise_conv, conv_step,
-                     rms_norm, softmax_cross_entropy)
+from .common import (ParamFactory, at_least, causal_depthwise_conv,
+                     conv_step, maybe_remat, rms_norm)
 from .family import FamilyLM
 
 __all__ = ["XLSTMLM", "XLSTMState", "param_shapes"]
@@ -124,7 +127,7 @@ def _mlstm_chunkwise(q, k, v, li, lf, C, n):
         n_run = eF[..., None] * n[:, None] + torch.einsum(
             "bhts,bshd->bthd", ew, kk.float())
         denom = torch.einsum("bthd,bthd->bth", qq.float(), n_run).abs()
-        hs.append((intra + inter) / denom.clamp(min=1.0)[..., None])
+        hs.append((intra + inter) / at_least(denom, 1.0)[..., None])
         # state at the chunk's end
         Fw = Fc[:, -1, :]  # (B, NH)
         decay = torch.exp(Fw[:, None] - Fc + ll_i)  # (B, W, NH)
@@ -145,7 +148,70 @@ def _slstm_math(g, c, n, m):
     f_ = torch.exp(ft + m - m_new)
     c_new = f_ * c + i_ * zt
     n_new = f_ * n + i_
-    return c_new, n_new, m_new, ot * c_new / n_new.clamp(min=1.0)
+    return c_new, n_new, m_new, ot * c_new / at_least(n_new, 1.0)
+
+
+def _slstm_step(xt, r4, c, n, m, h):
+    """One sLSTM step from the state ``(c, n, m, h)``; ``xt (B, 4, D)`` the
+    input's gate pre-activations, ``r4 (NH, dh, 4, dh)`` gate-major."""
+    B, _, D = xt.shape
+    NH, dh = r4.shape[0], r4.shape[1]
+    rec = torch.einsum("bhd,hdgf->bghf", h.reshape(B, NH, dh), r4)
+    return _slstm_math(xt + rec.reshape(B, 4, D), c, n, m)
+
+
+def _slstm_run(wx4s, r4, state, pres=None):
+    """The scan over time of ``wx4s (S, B, 4, D)`` from ``state``; returns
+    ``(final state, hs (S, B, D))``. ``pres``, a list, receives each step's
+    incoming state."""
+    hs = []
+    for xt in wx4s:
+        if pres is not None:
+            pres.append(state)
+        state = _slstm_step(xt, r4, *state)
+        hs.append(state[3])
+    return state, torch.stack(hs)
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The reference's ``_slstm_scan_core`` with its custom VJP.
+
+    ``forward(wx4s (S, B, 4, D), r (NH, dh, 4 dh), c0, n0, m0, h0)`` ->
+    ``(c, n, m, h, hs (S, B, D))``, all fp32. The forward keeps each step's
+    incoming state; the backward runs the steps in reverse, recomputing
+    each under ``enable_grad`` and pulling the gradients through it with
+    ``torch.autograd.grad``, and forms ``dR`` in one contraction over
+    (steps x batch) after the loop.
+    """
+
+    @staticmethod
+    def forward(ctx, wx4s, r, c0, n0, m0, h0):
+        NH = r.shape[0]
+        r4 = r.reshape(NH, r.shape[1], 4, r.shape[1])
+        pres = []
+        (c, n, m, h), hs = _slstm_run(wx4s, r4, (c0, n0, m0, h0), pres)
+        ctx.save_for_backward(wx4s, r, *(torch.stack(x) for x in zip(*pres)))
+        return c, n, m, h, hs
+
+    @staticmethod
+    def backward(ctx, dc, dn, dm, dh_, dhs):
+        wx4s, r, cs, ns, ms, hps = ctx.saved_tensors
+        NH, dh = r.shape[0], r.shape[1]
+        r4 = r.reshape(NH, dh, 4, dh)
+        S, B = wx4s.shape[0], wx4s.shape[1]
+        dxs = [None] * S
+        for t in range(S - 1, -1, -1):
+            with torch.enable_grad():
+                ins = [x.detach().requires_grad_()
+                       for x in (wx4s[t], hps[t], cs[t], ns[t], ms[t])]
+                out = _slstm_step(ins[0], r4, ins[2], ins[3], ins[4], ins[1])
+                dxs[t], dh_, dc, dn, dm = torch.autograd.grad(
+                    out, ins, (dc, dn, dm, dh_ + dhs[t]))
+        dwx4s = torch.stack(dxs)
+        # g = xt + rec, so d(rec) = d(g) = dwx4s; regroup gate-major per head
+        dr4 = torch.einsum("sbhd,sbghf->hdgf", hps.reshape(S, B, NH, dh),
+                           dwx4s.reshape(S, B, 4, NH, dh))
+        return dwx4s, dr4.reshape(NH, dh, 4 * dh), dc, dn, dm, dh_
 
 
 class XLSTMLM(FamilyLM):
@@ -221,19 +287,19 @@ class XLSTMLM(FamilyLM):
 
     # ------------------------------------------------------------ sLSTM block
     def _slstm_scan(self, x, sp, c, n, m, h):
-        """Forward scan over time of ``x (B, S, D)`` (the conv output)."""
+        """Forward scan over time of ``x (B, S, D)`` (the conv output);
+        returns ``(hs (B, S, D), final state)``. Under autograd it is the
+        custom-VJP ``_SLSTMScan``."""
         B, S, D = x.shape
         wx = _mm32(x, sp["w"]) + sp["b"].float()
-        wx4 = wx.reshape(B, S, 4, D)
-        r4 = sp["r"].float().reshape(self.nh, self.dh, 4, self.dh)
-        hs = []
-        for t in range(S):
-            rec = torch.einsum("bhd,hdgf->bghf", h.reshape(B, self.nh,
-                                                           self.dh), r4)
-            c, n, m, h = _slstm_math(wx4[:, t] + rec.reshape(B, 4, D), c, n,
-                                     m)
-            hs.append(h)
-        return torch.stack(hs, dim=1), (c, n, m, h)
+        wx4s = wx.reshape(B, S, 4, D).transpose(0, 1)
+        r = sp["r"].float()
+        if torch.is_grad_enabled():
+            c, n, m, h, hs = _SLSTMScan.apply(wx4s, r, c, n, m, h)
+        else:
+            (c, n, m, h), hs = _slstm_run(
+                wx4s, r.reshape(self.nh, self.dh, 4, self.dh), (c, n, m, h))
+        return hs.transpose(0, 1), (c, n, m, h)
 
     def _slstm_seq(self, h, sp):
         """One sLSTM block over a sequence from a zero state; returns
@@ -252,26 +318,25 @@ class XLSTMLM(FamilyLM):
         return h + mlp, state, tail
 
     # ----------------------------------------------------------------- train
-    @torch.inference_mode()
-    def _forward_train(self, batch: dict, *, last: bool = False
-                       ) -> torch.Tensor:
-        """Logits ``(B, S, V)`` of the whole sequence (forward only), or of
-        the last position alone when ``last``."""
+    def _sup_train(self, h, s):
+        """Super-block ``s``: its mLSTM blocks, then its sLSTM block."""
+        for j in range(self.pm):
+            h = self._mlstm_seq(h, self._m(s, j))[0]
+        if self.has_slstm:
+            h = self._slstm_seq(h, self._s(s))[0]
+        return h
+
+    def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of the whole sequence, or of the last
+        position alone when ``last``. Each super-block is remat'd per
+        ``cfg.remat_policy``, as in the reference."""
         h = self._embed(batch["tokens"])
+        sup = maybe_remat(self._sup_train, self.cfg.remat_policy)
         for s in range(self.n_sup):
-            for j in range(self.pm):
-                h = self._mlstm_seq(h, self._m(s, j))[0]
-            if self.has_slstm:
-                h = self._slstm_seq(h, self._s(s))[0]
+            h = sup(h, s)
         if last:
             h = h[:, -1:]
         return self._masked_logits(rms_norm(h, self.ln_f), self.unembed)
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean fp32 cross-entropy over the labels >= 0 (forward only)."""
-        logits = self._forward_train(batch)
-        labels = batch["labels"].to(logits.device)
-        return softmax_cross_entropy(logits, labels.clamp(min=0), labels >= 0)
 
     # ----------------------------------------------------------------- serve
     def make_caches(self, batch: int, s_max: int = 0) -> XLSTMState:

@@ -163,8 +163,11 @@ def test_ops_flash_attention_refuses_what_the_kernel_cannot_honour():
     got = port_attn.attend(tq[:, :5], tk, tv, impl="pallas", causal=False)
     want = port_attn.attend_xla(tq[:, :5], tk, tv, causal=False)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_attn.attend(tq, tk, tv, impl="chunked", causal=True)
+    # "chunked" is ported: at Sq < 2048 it is attend_xla, as in the
+    # reference's dispatch (tests/test_torch_train_models.py holds the rest)
+    assert torch.equal(port_attn.attend(tq, tk, tv, impl="chunked",
+                                        causal=True),
+                       port_attn.attend_xla(tq, tk, tv, causal=True))
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():

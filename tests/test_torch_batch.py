@@ -125,3 +125,43 @@ def test_run_batch_rejects_what_the_reference_rejects(kw, match):
     for run, i in ((ref.run_batch, inst), (port.run_batch, to_port(inst))):
         with pytest.raises(ValueError, match=match):
             run([i], **{"workers": 0, **kw})
+
+
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_pool_rows_equal_serial_and_reference(backend):
+    """``workers=2`` (a spawn pool) gives the serial rows and the
+    reference's, offline and online, under ``check="oracle"``."""
+    insts, rel = _grid()
+    kw = dict(seeds=(0,), schedulings=("work-conserving", "reserving"),
+              check="oracle")
+    want = ref.run_batch(insts, ref.ALGORITHMS, releases=rel, workers=0,
+                         backend={"kernel": "pallas"}.get(backend, backend),
+                         **kw)
+    pinsts = [to_port_online(i) if isinstance(i, ref.OnlineInstance)
+              else to_port(i) for i in insts]
+    prel = [None if r is None else torch.from_numpy(r) for r in rel]
+    serial = port.run_batch(pinsts, port.ALGORITHMS, releases=prel,
+                            backend=backend, workers=0, **kw)
+    pooled = port.run_batch(pinsts, port.ALGORITHMS, releases=prel,
+                            backend=backend, workers=2, **kw)
+    assert_same_rows(pooled.rows, want.rows)
+    assert_same_rows(pooled.rows, serial.rows)
+
+
+def test_worker_point_rebuilds_the_instance_from_host_arrays():
+    """What a worker is sent is host data only, and its point gives the
+    serial row, with the kernels' launches it made (none on the CPU)."""
+    from repro_torch.core import batch
+
+    o = to_port_online(ref.OnlineInstance(
+        inst=_random_instance(5), releases=_releases(_random_instance(5),
+                                                     "uniform", 5)))
+    point = (0, o.inst, o.releases, "ours", "reserving", 2, "validate",
+             "kernel", "full")
+    host = batch._host_point(*point)
+    assert not any(torch.is_tensor(x) for x in host)
+    assert all(isinstance(a, np.ndarray) for a in host[1]) and \
+        host[3] == "cpu"
+    row, launches = batch._run_point(host)
+    assert launches == {"chain_sm90": 0, "warp": 0}
+    assert_same_rows([row], [batch._run_one(*point)])

@@ -608,3 +608,98 @@ def test_tiny_family_on_the_card_equals_the_cpu_run(dev, family):
     assert runs["gpu"][0] == _TINY_LAUNCHES[family] and runs["cpu"][0] == 0
     for g, c in zip(runs["gpu"][1], runs["cpu"][1]):
         torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The pool and training on the card
+# ---------------------------------------------------------------------------
+
+def test_pool_on_the_card_counts_the_workers_launches(dev):
+    """``run_batch(workers=2)`` over card instances: the rows of the serial
+    run (but for ``wall_s``), and one chain-kernel launch per kernel point,
+    counted in the workers and added here."""
+    import dataclasses
+
+    runs = [_small_online(dev), _small_online(dev).inst]
+    kw = dict(schedulings=("work-conserving", "reserving"), backend="kernel")
+    before = dict(ca.launches_by_kernel)
+    pooled = port.run_batch(runs, ("ours", "sunflow-core"), workers=2, **kw)
+    got = {k: ca.launches_by_kernel[k] - before[k] for k in before}
+    assert got == {"chain_sm90": len(pooled), "warp": 0}
+    serial = port.run_batch(runs, ("ours", "sunflow-core"), workers=0, **kw)
+    assert [dataclasses.replace(r, wall_s=0.0) for r in pooled] == \
+        [dataclasses.replace(r, wall_s=0.0) for r in serial]
+
+
+@pytest.mark.parametrize("family", ["dense"] + list(_TINY))
+def test_tiny_family_trains_on_the_card_as_on_the_cpu(dev, family):
+    """fp32 loss and gradients of a tiny model of each family, card against
+    CPU: the loss within 1e-5 relative, each leaf within 1e-4 x max|g|
+    (``"chunked"`` where it engages, at S=2,048 for the dense model)."""
+    spec = dict(family="dense", n_layers=2, d_model=128, n_heads=2,
+                n_kv_heads=1, d_ff=256, vocab=500) if family == "dense" \
+        else _TINY[family]
+    cfg = ModelConfig(name=f"tiny-{family}", attention_impl="chunked",
+                      dtype=torch.float32, **spec)
+    S = 2048 if family == "dense" else 64
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    gpu = model_class(cfg.family).from_state(
+        cfg, {n: t.to(dev) for n, t in cpu.state_dict().items()})
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, S))),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (2, S)))}
+    if family == "vlm":
+        batch["prefix_embeds"] = torch.as_tensor(rng.standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+    if family == "audio":
+        batch["src_frames"] = torch.as_tensor(rng.standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32))
+    from repro_torch.train.step import loss_and_grads
+
+    loss_c, g_c = loss_and_grads(cpu, lambda: cpu.loss(batch))
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    loss_g, g_g = loss_and_grads(gpu, lambda: gpu.loss(dbatch))
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    assert set(g_g) == set(g_c)
+    for name, c in g_c.items():
+        torch.testing.assert_close(g_g[name].cpu(), c, rtol=0,
+                                   atol=1e-4 * float(c.abs().max()) + 1e-30,
+                                   msg=name)
+
+
+def test_train_loop_on_the_card(dev, tmp_path):
+    """A tiny model trains through ``train_loop`` on the card: finite
+    falling loss, a checkpoint, and a resume that continues the run (to
+    1e-6: the card's gradient scatters may sum in another order)."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=128,
+                      n_heads=2, n_kv_heads=1, d_ff=256, vocab=500,
+                      attention_impl="chunked")
+    kw = dict(global_batch=4, seq_len=2048, log_every=0, microbatches=2,
+              opt_cfg=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                      total_steps=6))
+    whole = train_loop(cfg, steps=6, **kw)
+    losses = [h["loss"] for h in whole.history]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    train_loop(cfg, steps=4, ckpt_dir=str(tmp_path), ckpt_every=4, **kw)
+    resumed = train_loop(cfg, steps=6, ckpt_dir=str(tmp_path), **kw)
+    np.testing.assert_allclose([h["loss"] for h in resumed.history],
+                               losses[4:], rtol=1e-6)
+    assert next(iter(whole.params.values())).device.type == "cuda"
+
+
+def test_pallas_training_raises_on_the_card(dev):
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=1, d_model=128,
+                      n_heads=2, n_kv_heads=1, d_ff=256, vocab=500,
+                      attention_impl="pallas")
+    model = build_model(cfg, device=dev)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    tokens = torch.zeros((1, 128), dtype=torch.int64, device=dev)
+    before = fa.launches
+    with pytest.raises(ValueError, match="no backward"):
+        model.loss({"tokens": tokens, "labels": tokens})
+    assert fa.launches == before

@@ -174,15 +174,17 @@ def test_validate_raises_on_lost_demand_and_wrong_cct():
 
 
 def test_unported_options_raise_and_unknown_inputs_are_rejected():
-    """What stays unported names its ROADMAP entry; bad inputs raise
-    ``ValueError`` as in the reference. ``check="oracle"`` (item 8) is
-    ported: it runs and gives the rows of ``check="validate"``."""
+    """Bad inputs raise ``ValueError`` as in the reference. The options
+    once unported run: ``check="oracle"`` (item 8) gives the rows of
+    ``check="validate"``, and ``workers=2`` (item 4, a spawn pool) the
+    serial rows but for ``wall_s``."""
     p = to_port(INSTANCES[0])
     oracle = port.run_batch([p], check="oracle")
     plain = port.run_batch([p], check="validate")
     assert [r.weighted_cct for r in oracle] == [r.weighted_cct for r in plain]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        port.run_batch([p], workers=2)
+    pooled = port.run_batch([p], workers=2, check="oracle")
+    assert [dataclasses.replace(r, wall_s=0.0) for r in pooled] == \
+        [dataclasses.replace(r, wall_s=0.0) for r in oracle]
     with pytest.raises(ValueError, match="unknown algorithm"):
         port.run_fast(p, "nope")
     with pytest.raises(ValueError, match="unknown scheduling"):

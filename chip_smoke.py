@@ -187,6 +187,27 @@ non-zero without printing a result):
      30 (the resumed loss below the first steps'), then the trained
      weights served under ``attention_impl="pallas"``: a prefill that
      launches the sm90 kernel once per layer, and 4 decode steps.
+ 16. a sharded training step's collectives as coflows (budget
+     ``COMM_BUDGET_S``): (a) in two processes of their own (a fake process
+     group cannot share one with NCCL), ``launch.dryrun.lower_cell`` traces
+     the train step of TinyLlama-1.1B and phi3.5-moe at ``train_4k``
+     (B=256 x 4,096), full width and depth, ``remat_policy="full"``, on
+     the 2x16x16 production mesh of a fake world of 512 ranks, on meta
+     DTensors: each arch's collective counts, coflows over the 32
+     aggregation blocks, inter-block bytes, per-rank FLOPs x 512 against
+     ``model_flops`` and per-rank argument bytes against 80 GB; (b) the
+     coflows on the card: ``comm.plan_circuits`` over all five
+     algorithms on the default ``OCSFabric`` (4 cores, 25/25/50/50 GB/s,
+     10 ms), every schedule validated with Lemma 1, Theorem 1 on ours and
+     Theorem 2 reported, each baseline's weighted CCT over ours; then
+     TinyLlama's coflows through ``FabricManager.schedule_instance(backend=
+     "kernel")``: one ``chain_sm90`` launch, the program through the
+     referee, its core choices against the fp64 backend's, a cache hit with
+     none, and after ``CoreDown(core=0)`` ``plan_circuits_service`` degraded
+     with no circuit on core 0; (c) ``train_loop(mesh=...)`` on a 1x1
+     ``("data", "model")`` mesh of an NCCL world of one: 2 steps of 15a's
+     config, batch and seed, whose losses must equal 15a's first two
+     within 1e-6 relative.
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -295,6 +316,9 @@ FAMILY_B, FAMILY_SRC, FAMILY_BUDGET_S = 8, 2048, 200.0
 #: context) and microbatches; the mid-size run's steps before and after the
 #: resume; the budget of the phase on the card.
 TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_MB = 8, 8, 2048, 2
+#: Phase 16: benchmarks/comm_planner.py's cells, on the 2x16x16 mesh.
+COMM_ARCHS, COMM_SHAPE, COMM_BUDGET_S = (
+    ("tinyllama-1.1b", "phi3.5-moe-42b-a6.6b"), "train_4k", 120.0)
 MID_STEPS, MID_RESUME, TRAIN_BUDGET_S = 24, 30, 150.0
 
 
@@ -391,6 +415,8 @@ def dense_layer0_qkv(model, tokens, prefix_embeds=None):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--phase16a"]:  # the dry run's own process
+        return dryrun_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "drives the port on a GPU and has no CPU mode", file=sys.stderr)
@@ -694,8 +720,10 @@ def main() -> int:
     log(f"[13] phases 1-13 took {time.perf_counter() - t_start:.1f} s")
     family_launches, family_rows = family_phases(torch, dev)
     log(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s")
-    train_launches = train_phases(torch, dev)
+    train_launches, train_ref = train_phases(torch, dev)
     log(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    comm_launches = comm_phases(torch, dev, train_ref)
+    log(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     for row in fa_rows:  # phase 8's launches, phase 14's and phase 15's
         kernel = "sm90_bf16" if row["name"] == "flash_attention" \
             else "simt_fp32"
@@ -712,12 +740,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
          "launches": main_launches["chain_sm90"]
          + online_launches["chain_sm90"] + stream_launches["chain_sm90"]
-         + oracle_launches["chain_sm90"],
+         + oracle_launches["chain_sm90"] + comm_launches["chain_sm90"],
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
         {"name": "coflow_assign_warp",
          "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
          "launches": main_launches["warp"] + online_launches["warp"]
-         + stream_launches["warp"] + oracle_launches["warp"],
+         + stream_launches["warp"] + oracle_launches["warp"]
+         + comm_launches["warp"],
          "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
         *fa_rows, *family_rows]}))
     log(smi)
@@ -1791,7 +1820,8 @@ def _grad_gap(torch, got: dict, want: dict) -> tuple[float, str]:
 
 def train_phases(torch, dev):
     """Phase 15: training on the card. Returns the flash kernels' launches
-    in 15(c)'s serving, by kernel."""
+    in 15(c)'s serving, by kernel, and 15(a)'s config, batch and first two
+    losses (what phase 16(c) repeats on a mesh)."""
     import gc
     import shutil
 
@@ -1999,7 +2029,7 @@ def train_phases(torch, dev):
     log(f"[15] phase 15 took {t15:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
     if t15 > TRAIN_BUDGET_S:
         log("[15] over the budget: 15a's steps are the first cut")
-    return launches
+    return launches, {"cfg": cfg, "B": B, "losses": losses[:2]}
 
 
 def device_time_by_kind(torch, fn):
@@ -2231,6 +2261,218 @@ def serve_phases(torch, dev, built):
             for name, kernel in (("flash_attention", "sm90_bf16"),
                                  ("flash_attention_fp32", "simt_fp32"))
             ]
+
+
+def dryrun_child(arch: str, out_path: str) -> int:
+    """Phase 16(a) for one arch, in a process of its own (the fake process
+    group of 512 ranks cannot share a process with NCCL): trace the train
+    step on meta DTensors, write its coflows to ``out_path`` (.npz) and
+    print its record as the last line."""
+    import warnings
+
+    warnings.filterwarnings("ignore")
+    import torch
+
+    torch.set_num_threads(2)
+    from repro_torch.comm import BlockMap, step_coflows
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    fake_world(512)
+    mesh = make_production_mesh(multi_pod=True)
+    row = lower_cell(arch, COMM_SHAPE, mesh, "multi", remat="full")
+    an = row.pop("analysis")
+    cfs = step_coflows(an, BlockMap.from_mesh_shape(
+        {"pod": 2, "data": 16, "model": 16}, ("pod", "data")))
+    np.savez(out_path,
+             demand=np.stack([c.demand.numpy() for c in cfs]),
+             weight=np.array([c.weight for c in cfs]),
+             cid=np.array([c.cid for c in cfs]))
+    print(json.dumps({
+        "arch": arch, "trace_s": row["trace_s"],
+        "counts": an.collective_counts(), "ops": len(an.collectives),
+        "coflows": len(cfs),
+        "inter_block_bytes": float(sum(c.total_bytes for c in cfs)),
+        "flops_per_rank": an.flops,
+        "model_flops": row["roofline"]["model_flops_global"],
+        "argument_bytes": row["memory"]["argument_bytes"],
+        "peak_bytes": row["memory"]["peak_estimate_bytes"],
+        "peak_note": row["memory"]["peak_note"],
+        "roofline": row["roofline"]}))
+    return 0
+
+
+def comm_phases(torch, dev, train_ref: dict) -> dict:
+    """Phase 16: a sharded training step's collectives as coflows on the
+    OCS fabric. Returns the assignment kernels' launches of 16(b)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.comm import OCSFabric, plan_circuits, \
+        plan_circuits_service
+    from repro_torch.core import (ALGORITHMS, Coflow, CoreDown, check_lemma1,
+                                  check_theorem1, check_theorem2, validate)
+    from repro_torch.core.coflow import instance_from_coflows
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.service import FabricConfig, FabricManager
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    t16 = time.perf_counter()
+    # ---- 16a. the dry run: both archs' traces at once, a process each --
+    tmp = ROOT / "chiprun_out" / "phase16a"  # the coflows, deleted after
+    tmp.mkdir(parents=True, exist_ok=True)
+    procs = {arch: subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase16a", arch,
+         str(tmp / f"{i}.npz")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for i, arch in enumerate(COMM_ARCHS)}
+    records, cofs = {}, {}
+    for i, (arch, proc) in enumerate(procs.items()):
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"16a: the dry run of {arch} failed "
+                                 f"(exit {proc.returncode}):\n{err[-3000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        npz = np.load(tmp / f"{i}.npz")
+        records[arch] = rec
+        cofs[arch] = [Coflow(cid=int(c), demand=torch.from_numpy(d).to(dev),
+                             weight=float(w))
+                      for c, d, w in zip(npz["cid"], npz["demand"],
+                                         npz["weight"])]
+        useful = rec["model_flops"] / (rec["flops_per_rank"] * 512)
+        log(f"[16a] {arch} x {COMM_SHAPE} on the 2x16x16 mesh (512 ranks of "
+            f"a fake process group, meta DTensors, remat full): traced in "
+            f"{rec['trace_s']} s; collectives {rec['counts']} in "
+            f"{rec['ops']} ops after folding the layers; {rec['coflows']} "
+            f"coflows over 32 blocks, {rec['inter_block_bytes'] / 1e9:.3f} GB "
+            f"between blocks a step; per-rank FLOPs x 512 "
+            f"{rec['flops_per_rank'] * 512:.4e} against model_flops "
+            f"{rec['model_flops']:.4e} (useful share {useful:.3f}); "
+            f"per-rank argument bytes {rec['argument_bytes'] / 1e9:.3f} GB of "
+            f"80 GB; peak estimate {rec['peak_bytes']} ({rec['peak_note']})")
+        if not (rec["coflows"] > 0 and rec["inter_block_bytes"] > 0
+                and rec["argument_bytes"] < 80e9 and 0 < useful <= 1.0):
+            raise AssertionError(f"16a: {arch}'s record is out of bounds: "
+                                 f"{rec}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    t16a = time.perf_counter() - t16
+
+    # ---- 16b. Algorithm 1 plans the circuits on the card ----------------
+    t0 = time.perf_counter()
+    fab = OCSFabric()
+    for arch, cfs in cofs.items():
+        reports = plan_circuits(cfs, fab, device=dev)
+        for alg, r in reports.items():
+            validate(r.schedule)
+            check_lemma1(r.schedule)
+        ours = reports["ours"]
+        t1 = check_theorem1(ours.schedule)
+        t2 = check_theorem2(ours.schedule, strict=False)
+        holds = t2["alg"] <= t2["bound"] * t2["lb_sum"] + 1e-6
+        log(f"[16b] {arch}: {len(cfs)} coflows, K={len(fab.rates)} cores at "
+            f"{fab.rates} B/s, delta {fab.delta} s; every schedule validated "
+            f"and Lemma 1 holds; ours: Theorem 1 holds (empirical ratio "
+            f"{t1['empirical_ratio']!r} against the bound {t1['bound']!r}), "
+            f"Theorem 2 {'holds' if holds else 'does not hold'} "
+            f"({t2['alg']!r} against {t2['bound'] * t2['lb_sum']!r})")
+        for alg in ALGORITHMS:
+            r = reports[alg]
+            log(f"[16b]   {alg:13s} weighted CCT {r.weighted_cct!r} s "
+                f"({r.weighted_cct / ours.weighted_cct:.4f} x ours), makespan "
+                f"{r.makespan!r} s, p99 {r.p99!r} s; makespan / ideal_lb_sum "
+                f"{r.makespan / r.ideal_lb_sum:.4f}")
+        if not ours.weighted_cct > 0:
+            raise AssertionError(f"16b: {arch}: ours plans nothing")
+
+    cfs = cofs[COMM_ARCHS[0]]
+    inst = instance_from_coflows(cfs, np.asarray(fab.rates), fab.delta,
+                                 device=dev)
+    mgr = FabricManager(FabricConfig(rates=tuple(fab.rates), delta=fab.delta,
+                                     N=inst.N), device=dev)
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    (p1, hit1), t_miss = sync_time(
+        lambda: mgr.schedule_instance(inst, backend="kernel"))
+    launches = dict(ca.launches_by_kernel)
+    (p2, hit2), t_hit = sync_time(
+        lambda: mgr.schedule_instance(inst, backend="kernel"))
+    if (hit1, hit2) != (False, True) or launches != {
+            "chain_sm90": 1, "warp": 0} or ca.launches_by_kernel != launches:
+        raise AssertionError(f"16b: the step's coflows must launch the chain "
+                             f"kernel once on the miss and not on the hit; "
+                             f"hits {(hit1, hit2)}, launches {launches} then "
+                             f"{ca.launches_by_kernel}")
+    p1.validate()
+    p64, _ = FabricManager(mgr.config, device=dev).schedule_instance(
+        inst, backend="numpy")
+
+    def cores(p):
+        key = np.lexsort([t.cpu().numpy() for t in (p.egress, p.ingress,
+                                                     p.cid)])
+        return p.core.cpu().numpy()[key]
+
+    c1, c64 = cores(p1), cores(p64)
+    if c1.shape != c64.shape:
+        raise AssertionError("16b: the kernel's and the fp64 programs carry "
+                             "different flows")
+    log(f"[16b] {COMM_ARCHS[0]}'s coflows through FabricManager."
+        f"schedule_instance(backend=\"kernel\"): miss {t_miss:.3f} s "
+        f"(launches {launches}), hit {t_hit:.3f} s (none); the program "
+        f"passes the referee; the kernel's core choices agree with the fp64 "
+        f"backend's on {float((c1 == c64).mean()):.4%} of {c1.size} circuits")
+    mgr.report_fault(CoreDown(t=0.0, core=0))
+    down, _ = plan_circuits_service(cfs, fab, manager=mgr, device=dev)
+    for alg, r in down.items():
+        if not r.degraded or 0 in set(r.program.core.tolist()):
+            raise AssertionError(f"16b: {alg} after CoreDown(core=0) must be "
+                                 f"degraded and use no circuit of core 0")
+    log(f"[16b] after CoreDown(core=0): plan_circuits_service gives every "
+        f"algorithm a degraded program with no circuit on core 0 (ours "
+        f"weighted CCT {down['ours'].weighted_cct!r} s)")
+    t16b = time.perf_counter() - t0
+
+    # ---- 16c. train_loop(mesh=) on a 1x1 mesh against phase 15a ----------
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        run = train_loop(train_ref["cfg"], mesh=mesh, steps=2,
+                         global_batch=train_ref["B"], seq_len=TRAIN_S,
+                         microbatches=TRAIN_MB, opt_cfg=OptimizerConfig(
+                             lr=1e-3, warmup_steps=1,
+                             total_steps=TRAIN_STEPS),
+                         log_every=0, seed=0)
+        losses = [h["loss"] for h in run.history]
+        placements = {str(p.placements) for p in run.params.values()}
+        del run
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_ref["losses"])]
+    log(f"[16c] train_loop(mesh=1x1 (data, model), NCCL world of 1): 2 steps "
+        f"of 15a's config, B={train_ref['B']} x {TRAIN_S}, {TRAIN_MB} "
+        f"microbatches: losses {losses!r} against 15a's "
+        f"{train_ref['losses']!r} (relative {rel!r}); parameter placements "
+        f"{placements}")
+    if len(losses) != 2 or max(rel) > 1e-6:
+        raise AssertionError("16c: the 1x1 mesh's losses must equal 15a's "
+                             "within 1e-6 relative")
+    t16c = time.perf_counter() - t0
+    t16 = time.perf_counter() - t16
+    log(f"[16] phase 16 took {t16:.1f} s (16a {t16a:.1f}, 16b {t16b:.1f}, "
+        f"16c {t16c:.1f}; budget {COMM_BUDGET_S:.0f} s)")
+    if t16 > COMM_BUDGET_S:
+        log("[16] over the budget: 16a's traces are the cost; phi3.5-moe's "
+            "depth is the first cut")
+    return launches
 
 
 if __name__ == "__main__":

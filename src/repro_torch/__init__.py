@@ -8,9 +8,12 @@ on the fp64 host backend or (opt-in) as a hand-written CUDA kernel
 host, and the feasibility referee and CCT metrics back on the device. The
 model zoo (``models``, ``configs``) serves every family (``serve``), its
 prefill attention through a hand-written flash-attention kernel, and
-trains on one device (``launch.train``: ``data``, ``train``, the
-checkpointer and watchdog of ``distributed``; ``analysis`` counts a
-configuration's FLOPs against the H100's peaks).
+trains on one device or sharded over a ``DeviceMesh`` (``launch.train``:
+``data``, ``train``, the checkpointer, watchdog and sharding planner of
+``distributed``). ``launch.dryrun`` traces a sharded step on a production
+mesh without allocating (``analysis`` counts its collectives and FLOPs
+against the H100's peaks), and ``comm`` turns the step's cross-block
+collectives into coflows that Algorithm 1 plans on the fabric.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; there
 is no silent fallback (see :func:`resolve_device`). On the CPU every kernel

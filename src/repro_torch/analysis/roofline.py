@@ -1,13 +1,108 @@
-"""Analytic parameter and FLOP counts of a model configuration.
+"""Three-term roofline model of a traced step, and the analytic parameter
+and FLOP counts of a configuration (target: one NVIDIA H100 SXM per rank).
 
-Port of the analytic half of ``repro.analysis.roofline``: ``count_params``
-and ``model_flops`` (6·N·D for training on D tokens, 2·N·D for inference;
-N the active parameters for MoE). ``roofline_terms`` reads a compiled
-step's HLO and waits for ``analysis/hlo.py`` (ROADMAP queue 1, item 12).
+Port of ``repro.analysis.roofline``:
+
+    compute    = FLOPs / peak_FLOP/s              [per rank]
+    memory     = HBM_bytes / HBM_bw               [per rank]
+    collective = collective_bytes / NVLink_bw     [per rank]
+
+FLOPs and collective bytes come from ``analysis.collectives.analyze_step``,
+per rank. ``collective`` uses the summed *operand* bytes of every
+collective (the reference's definition); the ring-model wire bytes are
+also reported. The port has no compiler and so no HBM estimate: while
+``hbm_bytes`` is ``None``, ``memory_s`` is ``None`` and the dominant term
+and the bound are taken over the other two.
+
+MODEL_FLOPS is the analytic useful compute (6·N·D for training a dense
+model on D tokens, 2·N·D for inference; N_active for MoE), used to report
+how much of the traced compute is "useful".
 """
 from __future__ import annotations
 
-__all__ = ["count_params", "model_flops"]
+import dataclasses
+
+from . import hw
+
+__all__ = ["RooflineTerms", "roofline_terms", "count_params", "model_flops"]
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    compute_s: float
+    memory_s: float | None
+    collective_s: float
+    hlo_flops: float  # per rank
+    hlo_bytes: float | None  # per rank
+    collective_bytes: float  # per rank (operand-sum definition)
+    wire_bytes: float  # ring-model per rank
+    model_flops_global: float
+    collective_counts: dict
+
+    def _terms(self) -> dict:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return {k: v for k, v in terms.items() if v is not None}
+
+    @property
+    def dominant(self) -> str:
+        terms = self._terms()
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        """Idealised step time if terms overlap perfectly = max term."""
+        return max(self._terms().values())
+
+    @property
+    def useful_fraction(self) -> float:
+        """MODEL_FLOPS / (FLOPs * chips): how much traced compute is useful."""
+        tot = self.hlo_flops * self.chips
+        return self.model_flops_global / tot if tot else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Achievable MFU bound: useful compute time / idealised step time."""
+        t_useful = self.model_flops_global / (self.chips * hw.PEAK_FLOPS_BF16)
+        return t_useful / self.bound_s if self.bound_s else 0.0
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "hlo_flops_per_chip": self.hlo_flops,
+            "hlo_bytes_per_chip": self.hlo_bytes,
+            "collective_bytes_per_chip": self.collective_bytes,
+            "wire_bytes_per_chip": self.wire_bytes,
+            "model_flops_global": self.model_flops_global,
+            "useful_fraction": self.useful_fraction,
+            "roofline_fraction": self.roofline_fraction,
+            "collective_counts": self.collective_counts,
+        }
+
+
+def roofline_terms(arch: str, shape: str, mesh_name: str, chips: int,
+                   analysis, model_flops_global: float) -> RooflineTerms:
+    """The terms of ``analysis`` (an ``analysis.collectives.HLOAnalysis``)."""
+    hbm = analysis.hbm_bytes
+    return RooflineTerms(
+        arch=arch, shape=shape, mesh=mesh_name, chips=chips,
+        compute_s=analysis.flops / hw.PEAK_FLOPS_BF16,
+        memory_s=None if hbm is None else hbm / hw.HBM_BW,
+        collective_s=analysis.collective_operand_bytes / hw.NVLINK_BW,
+        hlo_flops=analysis.flops,
+        hlo_bytes=hbm,
+        collective_bytes=analysis.collective_operand_bytes,
+        wire_bytes=analysis.collective_wire_bytes,
+        model_flops_global=model_flops_global,
+        collective_counts=analysis.collective_counts(),
+    )
 
 
 def count_params(cfg) -> tuple[float, float]:

@@ -82,6 +82,12 @@ class Coflow:
     def num_flows(self) -> int:
         return int((self.demand > 0).sum())
 
+    @property
+    def total_bytes(self) -> float:
+        """Sum of the demand, reduced by numpy on a host copy (the
+        reference's float)."""
+        return float(self.demand.cpu().numpy().sum())
+
 
 @dataclasses.dataclass(frozen=True)
 class Flow:

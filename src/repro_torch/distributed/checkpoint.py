@@ -17,8 +17,8 @@ key of the same leaf. bf16 is stored as its ``uint16`` bits (numpy has no
 bf16) and the manifest keeps the logical dtype; the hash is of the stored
 bytes. Writes are atomic (a ``.tmp`` directory, then a rename) and, through
 ``AsyncCheckpointer``, run on a writer thread. The reference's resharding
-on restore (``shardings=``) waits for ``distributed/`` (ROADMAP queue 1,
-item 11): a leaf is restored onto the target leaf's dtype and device.
+on restore (``shardings=``) waits for ROADMAP queue 1, item 11b: a leaf is
+restored onto the target leaf's dtype and device.
 """
 from __future__ import annotations
 

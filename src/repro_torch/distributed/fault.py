@@ -4,8 +4,7 @@ watchdog.
 Port of the single-process half of ``repro.distributed.fault``.
 ``StepWatchdog`` flags straggler steps, a step slower than ``factor`` x the
 rolling median of the recent ones. ``ElasticTrainer`` (re-meshing on
-device loss, with the fabric wiring) waits for ``distributed/`` (ROADMAP
-queue 1, item 11).
+device loss, with the fabric wiring) waits for ROADMAP queue 1, item 11b.
 """
 from __future__ import annotations
 

@@ -1,3 +1,4 @@
-"""Launchers: ``train`` (the training loop and its CLI). ``dryrun`` and
-``mesh`` lower cells on production meshes and wait for ``distributed/``
-(ROADMAP queue 1, item 11)."""
+"""Launchers: ``train`` (the training loop and its CLI, on one device or
+sharded over a mesh), ``mesh`` (the production meshes and the fake world
+of the dry run) and ``dryrun`` (every cell traced on a production mesh
+without allocating)."""

@@ -1,10 +1,11 @@
-"""Training launcher: data pipeline -> train loop on one device, with async
+"""Training launcher: data pipeline -> train loop, with async
 checkpointing, the straggler watchdog and exact resume.
 
-Port of ``repro.launch.train``, on one device (CUDA unless the caller asks
-for the CPU). The reference's ``mesh=`` (sharded training) and
-``compress_pods=True`` (int8 cross-pod gradients) wait for
-``distributed/`` (ROADMAP queue 1, item 11) and raise here.
+Port of ``repro.launch.train``: on one device (CUDA unless the caller asks
+for the CPU), or sharded over a ``DeviceMesh`` (``mesh=``: one process per
+rank, on the process group the caller started). The reference's
+``compress_pods=True`` (int8 cross-pod gradients) and a sharded run's
+checkpoints wait for ROADMAP queue 1, item 11b, and raise here.
 
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 200 \
       --d-model 512 --layers 8 --global-batch 8 --seq-len 256
@@ -12,6 +13,7 @@ for the CPU). The reference's ``mesh=`` (sharded training) and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -25,7 +27,10 @@ from ..device import resolve_device
 from ..distributed.checkpoint import (AsyncCheckpointer, latest_step,
                                       restore_checkpoint)
 from ..distributed.fault import StepWatchdog
+from ..distributed.sharding import (TRAIN_RULES, batch_spec, plan_tree,
+                                    shard_module, shard_tensor)
 from ..models.api import build_model
+from ..models.common import activation_sharding, is_sharded
 from ..train.optimizer import OptimizerConfig, init_opt_state
 from ..train.step import build_train_step
 
@@ -60,17 +65,37 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     watchdog sees the device's time. ``history`` holds each step's metrics
     as floats, ``step_s`` each step's seconds (what the watchdog saw) and
     ``stragglers`` the watchdog's ``(step, seconds, median)`` flags.
+
+    With ``mesh`` (a ``DeviceMesh`` of this process group, on the mesh's
+    device type; ``device`` is then not read) every rank draws the same
+    weights and reads the same batches, and shards the parameters, the
+    optimizer state and each batch by ``TRAIN_RULES`` and ``batch_spec``
+    (``DTensor.from_local`` of its own blocks); the step runs under
+    ``activation_sharding``. ``params`` and ``opt_state`` come back as
+    DTensors, ``history`` as the global values.
     """
-    if mesh is not None or compress_pods:
+    if compress_pods:
         raise NotImplementedError(
-            "sharded training (mesh=) and int8 cross-pod compression "
-            "(compress_pods=True) wait for distributed/: ROADMAP queue 1, "
-            "item 11")
-    dev = resolve_device(device)
+            "int8 cross-pod compression (compress_pods=True) waits for "
+            "ROADMAP queue 1, item 11b")
+    if mesh is not None and ckpt_dir:
+        raise NotImplementedError(
+            "checkpoints of a sharded run (and their restore onto other "
+            "shardings) wait for ROADMAP queue 1, item 11b")
+    if mesh is None:
+        dev = resolve_device(device)
+    elif mesh.device_type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(mesh.device_type)
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(seed))
     opt_cfg = opt_cfg or OptimizerConfig(total_steps=steps,
                                          warmup_steps=max(steps // 20, 1))
+    if mesh is not None:
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        shard_module(model, mesh, plan_tree(
+            mesh, params, model.param_axes(cfg), TRAIN_RULES))
     params = {k: p.detach() for k, p in model.named_parameters()}
     opt_state = init_opt_state(params)
     watchdog = StepWatchdog()
@@ -92,13 +117,21 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
 
     history, step_s = [], []
     it = iter(loader)
+    sharded = (contextlib.nullcontext() if mesh is None
+               else activation_sharding(mesh, TRAIN_RULES))
     try:
         for step in range(start, steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in next(it).items()}
+            if mesh is not None:
+                batch = {k: shard_tensor(v, mesh, batch_spec(
+                    mesh, v.ndim, v.shape[0])) for k, v in batch.items()}
             t0 = time.perf_counter()
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with sharded:
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
+            metrics = {k: float(v.full_tensor() if is_sharded(v) else v)
+                       for k, v in metrics.items()}
             step_s.append(time.perf_counter() - t0)
             watchdog.observe(step, step_s[-1])
             history.append(metrics)

@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kops
+from .common import is_sharded, local_call
 
 __all__ = ["NEG_INF", "CHUNK_KV", "KVCache", "attend", "attend_xla",
            "attend_chunked", "kv_cache_init", "kv_cache_layer_update",
@@ -89,8 +90,46 @@ def attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+#: ``attend``'s keyword arguments that are ``(B, S)`` tensors.
+_ROW_ARGS = ("q_positions", "kv_positions", "kv_valid")
+
+
+def _attend_sharded(q, k, v, *, impl: str, **kw):
+    """``attend`` of DTensors, per rank through ``local_call``.
+
+    Placements: the kv heads are first repeated to the q heads (a DTensor
+    op, so their gradient sums over each group as in ``_repeat_kv``); then
+    q, k and v all take q's shards of dim 0 (batch) and dim 2 (heads) and
+    are whole along the sequence and head_dim, along which the scores and
+    the softmax run. Attention is independent per sequence and per head,
+    so each rank's output is the attention of its own rows and heads; the
+    ``(B, S)`` positions and ``kv_valid`` take the batch shards alone. The
+    output has q's placements.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    k = _repeat_kv(k, h // kvh)
+    v = _repeat_kv(v, h // kvh)
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in q.placements)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    names = [n for n in _ROW_ARGS if kw.get(n) is not None]
+    rest = {n: a for n, a in kw.items() if n not in names}
+
+    def local(q, k, v, *row_args):
+        return attend(q, k, v, impl=impl, **rest,
+                      **dict(zip(names, row_args)))
+
+    return local_call(local, mesh, pl, (pl, pl, pl) + (rows,) * len(names),
+                      q, k, v, *(kw[n] for n in names))
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            impl: str = "xla", **kw) -> torch.Tensor:
+    if is_sharded(q):
+        return _attend_sharded(q, k, v, impl=impl, **kw)
     if impl == "xla":
         return attend_xla(q, k, v, **kw)
     if impl == "pallas":
@@ -272,8 +311,12 @@ def kv_cache_layer_update(layer_k: torch.Tensor, layer_v: torch.Tensor,
     into ``layer_k``/``layer_v (B, S_max, KVH, Dh)`` in place; returns them.
 
     When ``Sq >= S_max`` only the trailing ``S_max`` entries are written, so
-    every slot is written once and the scatter is deterministic.
+    every slot is written once and the scatter is deterministic. A sharded
+    cache is written per rank (:func:`_write_sharded`).
     """
+    if is_sharded(layer_k):
+        return _write_sharded(_write_local, (layer_k, layer_v),
+                              (new_k, new_v), start)
     s_max = layer_k.shape[1]
     sq = new_k.shape[1]
     if sq >= s_max:
@@ -293,6 +336,10 @@ def kv_cache_slot_positions(positions: torch.Tensor,
                             start: torch.Tensor) -> torch.Tensor:
     """``positions (B, S_max)`` with ``q_positions (B, Sq)`` written at
     ``start``; a new tensor (the input is not changed)."""
+    if is_sharded(positions):
+        out = positions.clone()
+        return _write_sharded(_positions_local, (out,), (q_positions,),
+                              start)[0]
     s_max = positions.shape[1]
     sq = q_positions.shape[1]
     if sq >= s_max:
@@ -305,3 +352,80 @@ def kv_cache_slot_positions(positions: torch.Tensor,
     out = positions.clone()
     out[bidx, slot] = q_positions.to(positions.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Writes into a sharded cache
+# ---------------------------------------------------------------------------
+
+
+def _write_local(off: int, s_max: int, layer_k, layer_v, new_k, new_v,
+                 start):
+    """``kv_cache_layer_update`` on the slots ``[off, off + S_local)`` of a
+    cache split along its sequence (``off = 0``, ``S_local = s_max`` when
+    it is not): entries outside the block go to a spare slot that is
+    dropped, so each written slot is written once."""
+    sq = new_k.shape[1]
+    if sq >= s_max:
+        drop = sq - s_max
+        new_k, new_v = new_k[:, drop:], new_v[:, drop:]
+        start = start + drop
+        sq = s_max
+    slot = _slots(start, sq, s_max) - off
+    s_loc = layer_k.shape[1]
+    slot = torch.where((slot >= 0) & (slot < s_loc), slot, s_loc)
+    bidx = torch.arange(layer_k.shape[0], device=layer_k.device)[:, None]
+    for dst, new in ((layer_k, new_k), (layer_v, new_v)):
+        tmp = torch.cat([dst, dst[:, :1]], dim=1)
+        tmp[bidx, slot] = new.to(dst.dtype)
+        dst.copy_(tmp[:, :s_loc])
+    return layer_k, layer_v
+
+
+def _positions_local(off: int, s_max: int, positions, q_positions, start):
+    """``kv_cache_slot_positions`` on a block of the sequence, in place
+    (the caller passes a copy)."""
+    sq = q_positions.shape[1]
+    if sq >= s_max:
+        drop = sq - s_max
+        q_positions = q_positions[:, drop:]
+        start = start + drop
+        sq = s_max
+    slot = _slots(start, sq, s_max) - off
+    s_loc = positions.shape[1]
+    slot = torch.where((slot >= 0) & (slot < s_loc), slot, s_loc)
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    tmp = torch.cat([positions, positions[:, :1]], dim=1)
+    tmp[bidx, slot] = q_positions.to(positions.dtype)
+    positions.copy_(tmp[:, :s_loc])
+    return (positions,)
+
+
+def _write_sharded(write, dsts: tuple, news: tuple, start):
+    """Write ``news`` into the cache tensors ``dsts`` (DTensors, dim 0 the
+    batch, dim 1 the sequence) per rank, in place, through ``local_call``.
+
+    Placements: each cache tensor keeps its own (the write goes into the
+    local blocks; redistributing would write into a copy); the new entries
+    take the cache's shards of dim 0 and of the dims after the sequence
+    (the kv heads) and are whole along their own sequence, as is ``start``
+    (batch shards only). A cache split along its sequence (the
+    ``seq_sharded`` fallback) is split on one mesh dim; that rank's block
+    starts at ``coordinate * S_local``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = dsts[0].device_mesh
+    pl = tuple(dsts[0].placements)
+    seq = [d for d, p in enumerate(pl) if p == Shard(1)]
+    if len(seq) > 1:
+        raise ValueError(f"cache split along its sequence on {len(seq)} "
+                         "mesh dims")
+    s_max = dsts[0].shape[1]
+    s_loc = s_max // (mesh.size(seq[0]) if seq else 1)
+    off = mesh.get_coordinate()[seq[0]] * s_loc if seq else 0
+    new_pl = tuple(Replicate() if p == Shard(1) else p for p in pl)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    out_pl = tuple(tuple(d.placements) for d in dsts)
+    n = len(dsts)
+    return local_call(lambda *a: write(off, s_max, *a), mesh, out_pl,
+                      out_pl + (new_pl,) * n + (rows,), *dsts, *news, start)

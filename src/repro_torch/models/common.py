@@ -8,11 +8,20 @@ Port of ``repro.models.common``. Conventions kept from the reference:
   - compute dtype and weights bf16 by default; norm statistics, softmax and
     the loss in fp32.
 
-``constrain`` is the identity (no mesh yet). ``maybe_remat`` is the
-reference's per-layer activation checkpointing, in ``torch.utils.checkpoint``.
+Sharding: a model whose weights are DTensors (``distributed.sharding.
+shard_module``) runs sharded inside an :class:`activation_sharding`
+context, where ``constrain`` redistributes an activation to its planned
+placements, as the reference's ``with_sharding_constraint`` pins it. Outside
+the context, or on a plain tensor, ``constrain`` is the identity, so every
+single-device path is unchanged. Ops that DTensor has no sharding rule for
+run per rank through :func:`local_call` (``torch.distributed.tensor.
+experimental.local_map``) with explicit placements.
+``maybe_remat`` is the reference's per-layer activation checkpointing, in
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, Iterable, Mapping
@@ -24,7 +33,10 @@ import torch.nn.functional as F
 __all__ = ["ParamFactory", "rms_norm", "layer_norm", "rope_frequencies",
            "apply_rope", "swiglu", "gelu_mlp", "causal_depthwise_conv",
            "conv_step", "softmax_cross_entropy", "param_count", "tree_bytes",
-           "constrain", "register_tree", "maybe_remat", "at_least"]
+           "constrain", "activation_sharding", "is_sharded", "local_call",
+           "row_placements", "matmul", "layer_weight", "serve_mode",
+           "in_layer", "layer_scope", "LAYER_TAGS", "register_tree",
+           "maybe_remat", "at_least"]
 
 #: Elements above which ``ParamFactory.dense`` draws a leaf slice by slice
 #: along its leading dims (4 GiB as one fp32 temporary). Every leaf of the
@@ -104,9 +116,226 @@ def param_count(tree) -> int:
     return sum(t.numel() for t in _leaves(tree))
 
 
-def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
-    """Sharding constraint of the reference; the identity without a mesh."""
-    return x
+# ---------------------------------------------------------------------------
+# Activation sharding constraints
+# ---------------------------------------------------------------------------
+
+_ACT_CTX: list = []
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor for a plain
+    tensor's sake)."""
+    return type(x).__name__ == "DTensor"
+
+
+class activation_sharding:
+    """Context manager: route ``constrain`` through ``(mesh, rules)``.
+
+    Inside it a plain tensor that meets a DTensor counts as replicated
+    (``implicit_replication``): the RoPE table, the positions and the masks
+    are the same global values on every rank.
+    """
+
+    def __init__(self, mesh, rules):
+        self.pair = (mesh, rules)
+        self._implicit = None
+
+    def __enter__(self):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        self._implicit = implicit_replication()
+        self._implicit.__enter__()
+        _ACT_CTX.append(self.pair)
+        return self
+
+    def __exit__(self, *exc):
+        _ACT_CTX.pop()
+        self._implicit.__exit__(*exc)
+        return False
+
+
+def constrain(x: torch.Tensor, names: tuple, *,
+              shape: tuple | None = None) -> torch.Tensor:
+    """Pin an activation to its planned sharding: a DTensor inside an
+    :class:`activation_sharding` context is redistributed to the plan's
+    placements (a collective when they differ); anything else passes as it
+    is. ``shape`` plans for another shape of the same rank than ``x``'s (a
+    flat ``(B, S, H*Dh)`` put on the shards of its ``(B, S, H, Dh)``
+    reshape, which DTensor can then split)."""
+    if not _ACT_CTX or not is_sharded(x):
+        return x
+    mesh, rules = _ACT_CTX[-1]
+    from ..distributed.sharding import plan_sharding
+
+    plan = plan_sharding(mesh, tuple(shape or x.shape), names, rules)
+    if tuple(x.placements) == plan.placements:
+        return x
+    return x.redistribute(mesh, plan.placements)
+
+
+def local_call(fn: Callable, mesh, out_placements, in_placements, *args,
+               grad_placements=None):
+    """``fn(*args)`` run per rank on local tensors, through ``local_map``.
+
+    Each tensor of ``args`` is redistributed to its entry of
+    ``in_placements`` first (a plain tensor counts as replicated); ``None``
+    entries pass their argument as it is. ``out_placements`` describes each
+    output (one tuple, or a tuple of tuples for several).
+    ``grad_placements`` (default: ``in_placements``) describes each input's
+    local gradient: an input whole on a mesh dim along which the outputs
+    are split (a weight read by each rank's own rows) gets ``Partial()``
+    there, since each rank's gradient is then its rows' share of the sum.
+    The caller states why the placements are right for ``fn``: each rank's
+    output must be ``fn`` of its own blocks.
+    """
+    from torch.distributed.tensor import DTensor, Placement, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    def listed(pls):
+        return tuple(None if p is None else list(p) for p in pls)
+
+    if isinstance(out_placements[0], Placement):  # one output
+        out_placements = list(out_placements)
+    else:
+        out_placements = listed(out_placements)
+    conv = []
+    for a, pl in zip(args, in_placements):
+        if pl is not None and isinstance(a, torch.Tensor) \
+                and not is_sharded(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        conv.append(a)
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=listed(in_placements),
+                     in_grad_placements=listed(grad_placements
+                                               or in_placements),
+                     device_mesh=mesh, redistribute_inputs=True)(*conv)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)``; a DTensor weight multiplies per rank
+    through ``local_call`` (DTensor's own product strategy search takes
+    seconds per new placement pair on a 3-D mesh)."""
+    if not is_sharded(w):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    # Placements, per mesh dim: where x's rows (dim 0, the batch) are split,
+    # w is gathered whole (the FSDP all-gather) and each rank multiplies its
+    # own rows, so w's gradient is the rows' share (Partial, reduced back to
+    # w's shards by the backward's reduce-scatter); where both split the
+    # contraction dim K (x's last, w's first: TP's row-parallel product),
+    # each rank multiplies its K block and the output is the blocks' share
+    # (Partial, reduced where it is next constrained); where w's columns
+    # are split (TP's column-parallel product), x is whole and each rank
+    # computes its columns, so x's gradient is the columns' share
+    # (Partial); elsewhere both are whole.
+    k_dim = x.ndim - 1
+    xin, win, out, xg, wg = [], [], [], [], []
+    for px, pw in zip(x.placements if is_sharded(x) else
+                      (Replicate(),) * w.device_mesh.ndim, w.placements):
+        if px == Shard(0):
+            xin.append(px), win.append(Replicate()), out.append(px)
+            xg.append(px), wg.append(Partial())
+        elif px == Shard(k_dim) and pw == Shard(0):
+            xin.append(px), win.append(pw), out.append(Partial())
+            xg.append(px), wg.append(pw)
+        elif pw == Shard(1):
+            xin.append(Replicate()), win.append(pw)
+            out.append(Shard(k_dim)), xg.append(Partial()), wg.append(pw)
+        else:
+            for pl in (xin, win, out, xg, wg):
+                pl.append(Replicate())
+    return local_call(torch.matmul, w.device_mesh, tuple(out),
+                      (tuple(xin), tuple(win)), x, w,
+                      grad_placements=(tuple(xg), tuple(wg)))
+
+
+#: ``LAYER_TAGS[0]`` is whether :func:`in_layer` tags; ``LAYER_TAGS[1]``
+#: is the layer the op now running belongs to (``None``: no layer). A
+#: collective trace (``analysis.collectives.analyze_step``) reads the tag to
+#: fold the per-layer collectives of the Python layer loops into one op each,
+#: as the reference's scanned layers give one op with a trip count.
+LAYER_TAGS: list = [False, None]
+
+
+class _LayerMark(torch.autograd.Function):
+    """Identity whose backward sets the current layer tag: at a layer's
+    output it enters the layer's backward, at its input it leaves it."""
+
+    @staticmethod
+    def forward(ctx, x, tag):
+        ctx.tag = tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        LAYER_TAGS[1] = ctx.tag
+        return g, None
+
+
+def in_layer(layer: int, body: Callable, h: torch.Tensor, *args):
+    """``body(h, *args)``, the ops of its forward and backward tagged as
+    ``layer`` while a trace asks for tags (else just the call)."""
+    if not LAYER_TAGS[0]:
+        return body(h, *args)
+    if h.requires_grad:
+        h = _LayerMark.apply(h, None)
+    with layer_scope(layer):
+        out = body(h, *args)
+    return _LayerMark.apply(out, layer) if out.requires_grad else out
+
+
+@contextlib.contextmanager
+def layer_scope(layer: int):
+    """Tag the forward ops inside as ``layer`` (see :func:`in_layer`)."""
+    prev, LAYER_TAGS[1] = LAYER_TAGS[1], layer
+    try:
+        yield
+    finally:
+        LAYER_TAGS[1] = prev
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity on a DTensor weight whose backward reduces the gradient to
+    the weight's own placements at once."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.spec = (w.device_mesh, tuple(w.placements))
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.spec) if is_sharded(g) else g
+
+
+def layer_weight(w: torch.Tensor) -> torch.Tensor:
+    """One layer's slice of a stacked weight, as the layer reads it. A
+    sharded slice's gradient is reduced to the slice's placements inside
+    the layer's backward (the per-layer reduce-scatter of the reference's
+    scanned step), not once for the whole stack after the backward."""
+    return _ReduceGrad.apply(w) if is_sharded(w) else w
+
+
+def serve_mode(x):
+    """The grad mode a serving step runs in: ``torch.inference_mode``, or
+    ``torch.no_grad`` on a DTensor cache ``x`` (DTensor does not run under
+    inference mode)."""
+    return torch.no_grad() if is_sharded(x) else torch.inference_mode()
+
+
+def row_placements(x) -> tuple[tuple, tuple]:
+    """``(rows, partial)`` of a DTensor ``x`` whose dim 0 is the batch:
+    ``rows`` keeps its shards of dim 0 and is whole elsewhere; ``partial``
+    is the gradient placement of a weight that each rank reads whole for
+    its own rows (``Partial()`` where ``rows`` is split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    return rows, tuple(Partial() if p == Shard(0) else Replicate()
+                       for p in rows)
 
 
 def register_tree(module: torch.nn.Module,
@@ -300,7 +529,15 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over unmasked positions, computed in fp32."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if is_sharded(lf):
+        # DTensor's gather has no working rule on a vocab-sharded dim: take
+        # the gold logit as a masked sum instead (exact, the other terms are
+        # zeros), which stays sharded with the vocab and reduces once.
+        hit = labels[..., None].long() == torch.arange(lf.shape[-1],
+                                                        device=lf.device)
+        gold = torch.where(hit, lf, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is None:
         return nll.mean()

@@ -34,11 +34,15 @@ import torch.nn.functional as F
 from .api import ModelConfig
 from .attention import (KVCache, attend, kv_cache_init, kv_cache_layer_update,
                         kv_cache_slot_positions)
-from .common import (ParamFactory, apply_rope, layer_norm, maybe_remat,
-                     rms_norm, rope_frequencies)
-from .family import FamilyLM
+from .common import (ParamFactory, apply_rope, constrain, in_layer,
+                     layer_norm, layer_scope, layer_weight, matmul,
+                     maybe_remat, rms_norm, rope_frequencies, serve_mode)
+from .family import ACT3, FamilyLM
 
-__all__ = ["DenseLM", "param_shapes"]
+ACT_Q = ("batch", None, "heads", None)
+ACT_KV = ("batch", None, "kv_heads", None)
+
+__all__ = ["DenseLM", "param_shapes", "param_axes"]
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -71,12 +75,50 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def _heads(x: torch.Tensor, n: int, dh: int, names: tuple) -> torch.Tensor:
+    """``(B, S, n*dh) -> (B, S, n, dh)``, pinned to ``names``. Sharded, the
+    flat tensor first takes the heads' shards (dims 0 and 2 of both): a
+    shard of the flat dim that splits a head cannot be reshaped."""
+    shape = (*x.shape[:2], n, dh)
+    return constrain(constrain(x, names, shape=shape).reshape(shape), names)
+
+
+#: Logical axes of each weight, as the reference's ``init`` names them.
+_AXES = {
+    "embed": ("vocab", "embed"),
+    "unembed": ("vocab", "embed"),
+    "ln_f": ("embed",),
+    "ln_fb": ("embed",),
+    "blocks.wq": ("layers", "embed", "heads_flat"),
+    "blocks.wk": ("layers", "embed", "kv_flat"),
+    "blocks.wv": ("layers", "embed", "kv_flat"),
+    "blocks.wo": ("layers", "heads_flat", "embed"),
+    "blocks.bq": ("layers", "heads_flat"),
+    "blocks.bk": ("layers", "kv_flat"),
+    "blocks.bv": ("layers", "kv_flat"),
+    "blocks.ln1": ("layers", "embed"),
+    "blocks.ln2": ("layers", "embed"),
+    "blocks.ln1b": ("layers", "embed"),
+    "blocks.ln2b": ("layers", "embed"),
+    "blocks.w_gate": ("layers", "embed", "mlp"),
+    "blocks.w_up": ("layers", "embed", "mlp"),
+    "blocks.w_down": ("layers", "mlp", "embed"),
+}
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes of a dense (or vlm) model's weights
+    (what the sharding planner reads)."""
+    return {name: _AXES[name] for name in param_shapes(cfg)}
+
+
 class DenseLM(FamilyLM):
     """Dense LM (see :class:`family.FamilyLM` for ``device``, ``generator``
     and ``from_state``)."""
 
     FAMILIES = ("dense", "vlm")
     param_shapes = staticmethod(param_shapes)
+    param_axes = staticmethod(param_axes)
 
     def _init_leaf(self, f: ParamFactory, name: str, shape: tuple[int, ...],
                    dtype: torch.dtype) -> torch.Tensor:
@@ -97,7 +139,7 @@ class DenseLM(FamilyLM):
 
     # ------------------------------------------------------------- internals
     def _w(self, name: str, layer: int) -> torch.Tensor:
-        return self.blocks[name][layer]
+        return layer_weight(self.blocks[name][layer])
 
     def _norm(self, x: torch.Tensor, layer: int | None, which: str
               ) -> torch.Tensor:
@@ -115,28 +157,32 @@ class DenseLM(FamilyLM):
     def _qkv(self, h: torch.Tensor, layer: int):
         cfg = self.cfg
         B, S, _ = h.shape
-        q = h @ self._w("wq", layer)
-        k = h @ self._w("wk", layer)
-        v = h @ self._w("wv", layer)
+        q = matmul(h, self._w("wq", layer))
+        k = matmul(h, self._w("wk", layer))
+        v = matmul(h, self._w("wv", layer))
         if cfg.qkv_bias:
             q = q + self._w("bq", layer)
             k = k + self._w("bk", layer)
             v = v + self._w("bv", layer)
-        return (q.reshape(B, S, cfg.n_heads, cfg.dh),
-                k.reshape(B, S, cfg.n_kv_heads, cfg.dh),
-                v.reshape(B, S, cfg.n_kv_heads, cfg.dh))
+        return (_heads(q, cfg.n_heads, cfg.dh, ACT_Q),
+                _heads(k, cfg.n_kv_heads, cfg.dh, ACT_KV),
+                _heads(v, cfg.n_kv_heads, cfg.dh, ACT_KV))
 
     def _mlp(self, hn: torch.Tensor, layer: int) -> torch.Tensor:
-        g = F.silu(hn @ self._w("w_gate", layer))
-        u = hn @ self._w("w_up", layer)
-        return (g * u) @ self._w("w_down", layer)
+        g = F.silu(matmul(hn, self._w("w_gate", layer)))
+        u = matmul(hn, self._w("w_up", layer))
+        return matmul(constrain(g * u, ("batch", None, "mlp")),
+                      self._w("w_down", layer))
 
     def _attn_out(self, o: torch.Tensor, layer: int) -> torch.Tensor:
-        return o.reshape(o.shape[0], o.shape[1], -1) @ self._w("wo", layer)
+        o = constrain(o, ACT_Q)
+        return matmul(o.reshape(o.shape[0], o.shape[1], -1),
+                      self._w("wo", layer))
 
     def _block_train(self, h: torch.Tensor, layer: int,
                      positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        h = constrain(h, ACT3)
         hn = self._norm(h, layer, "ln1")
         q, k, v = self._qkv(hn, layer)
         q = apply_rope(q, positions, self.inv_freq, self.rot)
@@ -149,7 +195,10 @@ class DenseLM(FamilyLM):
                        q_positions=positions, kv_positions=positions,
                        window=cfg.window or None)
         h = h + self._attn_out(o, layer)
-        return h + self._mlp(self._norm(h, layer, "ln2"), layer)
+        # pinned at the end too, so that a layer's partial sums are reduced
+        # inside the layer (its collectives are then the same in each)
+        return constrain(h + self._mlp(self._norm(h, layer, "ln2"), layer),
+                         ACT3)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -173,12 +222,13 @@ class DenseLM(FamilyLM):
         h = self._embed(batch["tokens"])
         if cfg.n_prefix_tokens:
             h = self._with_prefix(h, batch["prefix_embeds"])
+        h = constrain(h, ACT3)
         B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
         block = maybe_remat(self._block_train, cfg.remat_policy)
         for layer in range(cfg.n_layers):
-            h = block(h, layer, positions)
+            h = in_layer(layer, block, h, layer, positions)
         if cfg.n_prefix_tokens:
             h = h[:, cfg.n_prefix_tokens:]
         return self._logits(self._norm(h[:, -1:] if last else h, None,
@@ -190,10 +240,20 @@ class DenseLM(FamilyLM):
         return kv_cache_init(cfg.n_layers, batch, s_max, cfg.n_kv_heads,
                              cfg.dh, cfg.dtype, device=self.device)
 
-    @torch.inference_mode()
+    def cache_axes(self) -> KVCache:
+        kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return KVCache(k=kv, v=kv, length=("batch",),
+                       positions=("batch", "seq"))
+
     def _step(self, cache: KVCache, tokens: torch.Tensor, fresh: bool,
               prefix_embeds: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, KVCache]:
+        with serve_mode(cache.k):
+            return self._step_body(cache, tokens, fresh, prefix_embeds)
+
+    def _step_body(self, cache: KVCache, tokens: torch.Tensor, fresh: bool,
+                   prefix_embeds: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, KVCache]:
         """Shared prefill/decode: append ``Sq`` tokens (after the prefix
         embeddings, if given) to the cache (in place) and return the last
         position's logits ``(B, 1, V)``.
@@ -210,35 +270,47 @@ class DenseLM(FamilyLM):
                 + torch.arange(Sq, dtype=torch.int32, device=h.device)[None, :])
         new_pos = kv_cache_slot_positions(cache.positions, qpos, start)
         kv_valid = new_pos >= 0
-        window = cfg.window or None
         for layer in range(cfg.n_layers):
-            hn = self._norm(h, layer, "ln1")
-            q, k, v = self._qkv(hn, layer)
-            q = apply_rope(q, qpos, self.inv_freq, self.rot)
-            k = apply_rope(k, qpos, self.inv_freq, self.rot)
-            ck, cv = kv_cache_layer_update(cache.k[layer], cache.v[layer],
-                                           k, v, start)
-            if fresh and cfg.attention_impl == "pallas":
-                o = attend(q, k, v, impl="pallas", causal=True, window=window)
-            else:
-                o = attend(q, ck, cv, impl="xla", causal=True,
-                           q_positions=qpos, kv_positions=new_pos,
-                           window=window, kv_valid=kv_valid)
-            h = h + self._attn_out(o, layer)
-            h = h + self._mlp(self._norm(h, layer, "ln2"), layer)
+            with layer_scope(layer):
+                h = self._serve_layer(h, cache, layer, qpos, new_pos,
+                                      kv_valid, start, fresh)
         logits = self._logits(self._norm(h[:, -1:], None, "ln_f"))
         return logits, KVCache(k=cache.k, v=cache.v, length=start + Sq,
                                positions=new_pos)
 
-    def prefill(self, cache: KVCache, batch: dict
+    def _serve_layer(self, h, cache: KVCache, layer: int, qpos, new_pos,
+                     kv_valid, start, fresh: bool) -> torch.Tensor:
+        cfg = self.cfg
+        window = cfg.window or None
+        h = constrain(h, ACT3)
+        hn = self._norm(h, layer, "ln1")
+        q, k, v = self._qkv(hn, layer)
+        q = apply_rope(q, qpos, self.inv_freq, self.rot)
+        k = apply_rope(k, qpos, self.inv_freq, self.rot)
+        ck, cv = kv_cache_layer_update(cache.k[layer], cache.v[layer], k, v,
+                                       start)
+        if fresh and cfg.attention_impl == "pallas":
+            o = attend(q, k, v, impl="pallas", causal=True, window=window)
+        else:
+            o = attend(q, ck, cv, impl="xla", causal=True,
+                       q_positions=qpos, kv_positions=new_pos,
+                       window=window, kv_valid=kv_valid)
+        h = h + self._attn_out(o, layer)
+        return constrain(h + self._mlp(self._norm(h, layer, "ln2"), layer),
+                         ACT3)
+
+    def prefill(self, cache: KVCache, batch: dict, *,
+                fresh: bool | None = None
                 ) -> tuple[torch.Tensor, KVCache]:
         """Append the prompt ``batch["tokens"]`` (after
         ``batch["prefix_embeds"]``, if given); last logits ``(B, 1, V)``.
 
         Reads ``cache.length`` on the host once, to tell a fresh prefill
-        (the flash kernel's case) from one into a non-empty cache.
+        (the flash kernel's case) from one into a non-empty cache, unless
+        ``fresh`` says (a trace on ``meta`` tensors cannot read it).
         """
-        fresh = not bool(cache.length.any())
+        if fresh is None:
+            fresh = not bool(cache.length.any())
         return self._step(cache, batch["tokens"], fresh,
                           batch.get("prefix_embeds"))
 

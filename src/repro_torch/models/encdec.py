@@ -33,10 +33,10 @@ import torch
 from .api import ModelConfig
 from .attention import attend, kv_cache_layer_update, kv_cache_slot_positions
 from .common import (ParamFactory, apply_rope, gelu_mlp, layer_norm,
-                     maybe_remat, rope_frequencies)
+                     maybe_remat, rope_frequencies, serve_mode)
 from .family import FamilyLM
 
-__all__ = ["EncDecLM", "EncDecCache", "param_shapes"]
+__all__ = ["EncDecLM", "EncDecCache", "param_shapes", "param_axes"]
 
 
 class EncDecCache(NamedTuple):
@@ -76,11 +76,41 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+#: Logical axes of each leaf, by its name after ``enc.``/``dec.``.
+_LEAF_AXES = {
+    "wq": ("layers", "embed", "heads_flat"),
+    "wo": ("layers", "heads_flat", "embed"),
+    "ln": ("layers", "embed"), "lnb": ("layers", "embed"),
+    "wk": ("layers", "embed", "kv_flat"), "wv": ("layers", "embed", "kv_flat"),
+    "w_in": ("layers", "embed", "mlp"), "b_in": ("layers", "mlp"),
+    "w_out": ("layers", "mlp", "embed"), "b_out": ("layers", "embed"),
+    "ln_m": ("layers", "embed"), "ln_mb": ("layers", "embed"),
+}
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes of an enc-dec model's weights."""
+    top = {"embed": ("vocab", "embed"), "unembed": ("vocab", "embed"),
+           "ln_enc": ("embed",), "ln_encb": ("embed",), "ln_f": ("embed",),
+           "ln_fb": ("embed",)}
+    out = {}
+    for name in param_shapes(cfg):
+        if name in top:
+            out[name] = top[name]
+            continue
+        base = name.split(".", 1)[1]
+        for pre in ("sa_", "ca_"):
+            base = base.removeprefix(pre)
+        out[name] = _LEAF_AXES[base]
+    return out
+
+
 class EncDecLM(FamilyLM):
     """Enc-dec LM (see :class:`family.FamilyLM`)."""
 
     FAMILIES = ("audio",)
     param_shapes = staticmethod(param_shapes)
+    param_axes = staticmethod(param_axes)
 
     def __init__(self, cfg: ModelConfig, **kw):
         if not (cfg.enc_layers and cfg.dec_layers):
@@ -200,6 +230,12 @@ class EncDecLM(FamilyLM):
         return self._logits(layer_norm(h, self.ln_f, self.ln_fb))
 
     # ----------------------------------------------------------------- serve
+    def cache_axes(self) -> EncDecCache:
+        kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return EncDecCache(self_k=kv, self_v=kv,
+                           self_pos=("layers", "batch", "seq"),
+                           cross_k=kv, cross_v=kv, length=("batch",))
+
     def make_caches(self, batch: int, s_max: int, *, s_src: int = 0
                     ) -> EncDecCache:
         """An empty cache; ``s_src`` (default ``s_max // 8``, as the
@@ -241,13 +277,20 @@ class EncDecLM(FamilyLM):
         return start[:, None] + torch.arange(sq, dtype=torch.int32,
                                              device=start.device)[None]
 
-    @torch.inference_mode()
-    def prefill(self, cache: EncDecCache, batch: dict
+    def prefill(self, cache: EncDecCache, batch: dict, *,
+                fresh: bool | None = None
                 ) -> tuple[torch.Tensor, EncDecCache]:
         """Encode ``batch["src_frames"]``, project the cross K/V, run the
         target prefix ``batch["tokens"]``; last logits ``(B, 1, vocab)``.
-        Reads ``cache.length`` on the host once, to tell a fresh prefill."""
-        fresh = not bool(cache.length.any())
+        Reads ``cache.length`` on the host once, to tell a fresh prefill,
+        unless ``fresh`` says (a trace on ``meta`` tensors cannot read it)."""
+        if fresh is None:
+            fresh = not bool(cache.length.any())
+        with serve_mode(cache.self_k):
+            return self._prefill(cache, batch, fresh)
+
+    def _prefill(self, cache: EncDecCache, batch: dict, fresh: bool
+                 ) -> tuple[torch.Tensor, EncDecCache]:
         enc_out = self.encode(batch["src_frames"])
         h = self._embed(batch["tokens"])
         start = cache.length
@@ -271,10 +314,14 @@ class EncDecLM(FamilyLM):
         return self._logits(h)[..., :self.cfg.vocab], cache._replace(
             cross_k=cross_k, cross_v=cross_v, length=start + qpos.shape[1])
 
-    @torch.inference_mode()
     def decode_step(self, cache: EncDecCache, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, EncDecCache]:
         """Append ``tokens (B, 1)``; logits ``(B, 1, vocab)``."""
+        with serve_mode(cache.self_k):
+            return self._decode_step(cache, tokens)
+
+    def _decode_step(self, cache: EncDecCache, tokens: torch.Tensor
+                     ) -> tuple[torch.Tensor, EncDecCache]:
         h = self._embed(tokens)
         start = cache.length
         qpos = self._qpos(start, h.shape[1])

@@ -5,7 +5,10 @@ A family subclasses :class:`FamilyLM` and gives
 
   - ``FAMILIES``, the config families it serves;
   - ``param_shapes(cfg)``, state-dict name -> shape, the names being the
-    reference's tree paths (``blocks.wq``, ``sup.slot0.w_x``, ``m.b_if``);
+    reference's tree paths (``blocks.wq``, ``sup.slot0.w_x``, ``m.b_if``),
+    and ``param_axes(cfg)``, state-dict name -> the logical axes the
+    reference's ``init`` gives that leaf (what ``distributed.sharding``
+    plans from), with ``cache_axes()`` for the cache;
   - ``FP32_LEAVES``, the leaf names the reference keeps in float32 whatever
     ``cfg.dtype`` is (the MoE router, the RG-LRU's ``lam``, the xLSTM gate
     biases);
@@ -29,9 +32,13 @@ from torch import nn
 
 from ..device import resolve_device
 from .api import ModelConfig
-from .common import ParamFactory, register_tree, softmax_cross_entropy
+from .common import (ParamFactory, constrain, is_sharded, local_call,
+                     matmul, register_tree, row_placements,
+                     softmax_cross_entropy)
 
-__all__ = ["FamilyLM"]
+__all__ = ["FamilyLM", "ACT3"]
+
+ACT3 = ("batch", None, None)  # hidden stream (B, S, D)
 
 
 class FamilyLM(nn.Module):
@@ -48,6 +55,10 @@ class FamilyLM(nn.Module):
 
     @staticmethod
     def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+        raise NotImplementedError
+
+    @staticmethod
+    def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
         raise NotImplementedError
 
     def __init__(self, cfg: ModelConfig, *, device=None,
@@ -105,7 +116,31 @@ class FamilyLM(nn.Module):
         return self.embed.device
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if is_sharded(self.embed):
+            return self._embed_sharded(tokens)
         return self.embed[tokens.to(self.device).long()].to(self.cfg.dtype)
+
+    def _embed_sharded(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The lookup of a DTensor table, per rank through ``local_call``.
+
+        Placements: the tokens keep their batch shards and the table is
+        gathered whole on every rank (a lookup indexes any row, and DTensor's
+        vocab-sharded embedding leaves a masked partial sum that its
+        backward cannot take); each rank's rows come out with the tokens'
+        batch shards, and the table's gradient is each rank's rows' share
+        (``Partial`` over the batch shards)."""
+        from torch.distributed.tensor import Replicate
+
+        if not is_sharded(tokens):
+            raise ValueError("a sharded model takes a sharded batch "
+                             "(distributed.sharding.batch_spec)")
+        mesh = tokens.device_mesh
+        rows, partial = row_placements(tokens)
+        whole = (Replicate(),) * mesh.ndim
+        h = local_call(lambda t, table: table[t.long()], mesh, rows,
+                       (rows, whole), tokens, self.embed,
+                       grad_placements=(rows, partial))
+        return h.to(self.cfg.dtype)
 
     def _forward(self, batch: dict, *, last: bool = False) -> torch.Tensor:
         raise NotImplementedError
@@ -128,7 +163,11 @@ class FamilyLM(nn.Module):
                        ) -> torch.Tensor:
         """``h @ table.T`` with the padding rows' logits set to -1e9."""
         cfg = self.cfg
-        logits = h @ table.T
+        logits = constrain(matmul(h, table.T), ("batch", None, "vocab"))
+        if cfg.padded_vocab != cfg.vocab and is_sharded(logits):
+            pad = torch.arange(cfg.padded_vocab,
+                               device=logits.device) >= cfg.vocab
+            return torch.where(pad, -1e9, logits)
         if cfg.padded_vocab != cfg.vocab:
             logits = logits.clone()
             logits[..., cfg.vocab:] = -1e9

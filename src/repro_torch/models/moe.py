@@ -13,10 +13,14 @@ Tokens over capacity pass through the residual only. The expert weights
 Capacity makes the function depend on how tokens are grouped: a prompt of
 S = 2,048 routes in groups of 256, a decode token alone (gs = 1), so the
 whole-sequence forward is not the cached path's function at the last
-position, in the reference as here. ``constrain`` is the identity (no
-mesh). ``aux_load_balance_loss`` is the reference's Switch-style
-load-balance auxiliary for training (the train step does not add it, as
-in the reference).
+position, in the reference as here. Sharded (a DTensor model inside
+``activation_sharding``), the experts' activations are pinned to
+``("batch", None, "experts", None, None)`` as in the reference, and the
+routing and the expert products run per rank through ``local_call``
+(DTensor has no rule for ``topk`` and ``one_hot``).
+``aux_load_balance_loss`` is the reference's Switch-style load-balance
+auxiliary for training (the train step does not add it, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -26,10 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from .api import ModelConfig
+from .common import constrain, is_sharded, local_call, row_placements
 from .dense import DenseLM
+from .dense import param_axes as dense_param_axes
 from .dense import param_shapes as dense_param_shapes
 
-__all__ = ["MoELM", "param_shapes", "group_size", "capacity"]
+__all__ = ["MoELM", "param_shapes", "param_axes", "group_size", "capacity"]
+
+ACT_E = ("batch", None, "experts", None, None)
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -43,6 +51,18 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
                    "blocks.w_up": (L, E, D, Fd),
                    "blocks.w_down": (L, E, Fd, D)})
     return shapes
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes: the dense model's, with the router
+    ``("layers", "embed", "experts_r")`` and the expert stacks' leading
+    ``"experts"``."""
+    axes = dense_param_axes(cfg)
+    axes.update({"blocks.w_router": ("layers", "embed", "experts_r"),
+                 "blocks.w_gate": ("layers", "experts", "embed", "mlp"),
+                 "blocks.w_up": ("layers", "experts", "embed", "mlp"),
+                 "blocks.w_down": ("layers", "experts", "mlp", "embed")})
+    return axes
 
 
 def group_size(S: int) -> int:
@@ -61,25 +81,74 @@ def capacity(cfg: ModelConfig, gs: int) -> int:
     return min(c, gs)
 
 
+def _experts_sharded(slot, combine, x, w_gate, w_up, w_down):
+    """The expert block of :meth:`MoELM._mlp` on DTensors, each product per
+    rank through ``local_call``, the activations pinned to ``ACT_E`` as in
+    the reference.
+
+    Placements, per mesh dim: where ``x``'s rows (the batch) are split,
+    every operand keeps its rows and the weights are gathered whole (the
+    FSDP all-gather; their gradients are the rows' share, ``Partial``);
+    where the weights' experts (their dim 0) are split, each rank holds its
+    experts: the dispatch and combine one-hots and the expert activations
+    are split along E too (``slot``/``combine`` dim 3, ``xe``/``y`` dim 2),
+    ``x`` is whole and its gradient is the local experts' share, as is the
+    combined output (``Partial``, reduced by the final ``constrain``). D and
+    F are whole on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows, partial = row_placements(x)
+    ex = tuple(p == Shard(0) and r != Shard(0)
+               for p, r in zip(w_gate.placements, rows))
+
+    def pick(e_pl, i):
+        return tuple(r if r == Shard(0) else (e_pl if e else Replicate())
+                     for r, e in zip(rows, ex)) if i else None
+
+    act = pick(Shard(2), 1)  # xe, y: (B, G, E, C, D|F)
+    hot = pick(Shard(3), 1)  # slot, combine: (B, G, gs, E, C)
+    x_g = pick(Partial(), 1)
+    w_in = tuple(Shard(0) if e else Replicate() for e in ex)
+    w_g = tuple(Partial() if r == Shard(0) else p
+                for r, p in zip(rows, w_in))
+    mesh = x.device_mesh
+    xe = local_call(lambda a, b: torch.einsum("bgtec,bgtd->bgecd",
+                                              a.to(b.dtype), b),
+                    mesh, act, (hot, rows), slot, x,
+                    grad_placements=(hot, x_g))
+    xe = constrain(xe, ACT_E)
+
+    def ffn(xe, w_gate, w_up, w_down):
+        g1 = F.silu(torch.einsum("bgecd,edf->bgecf", xe, w_gate))
+        u1 = torch.einsum("bgecd,edf->bgecf", xe, w_up)
+        return torch.einsum("bgecf,efd->bgecd", g1 * u1, w_down)
+
+    y = local_call(ffn, mesh, act, (act, w_in, w_in, w_in), xe, w_gate,
+                   w_up, w_down, grad_placements=(act, w_g, w_g, w_g))
+    y = constrain(y, ACT_E)
+    out = local_call(lambda c, y: torch.einsum("bgtec,bgecd->bgtd",
+                                               c.to(y.dtype), y),
+                     mesh, x_g, (hot, act), combine, y)
+    return constrain(out, ("batch", None, None, None))
+
+
 class MoELM(DenseLM):
     """MoE LM; weights, attention, cache and serving are ``DenseLM``'s."""
 
     FAMILIES = ("moe",)
     FP32_LEAVES = frozenset({"w_router"})
     param_shapes = staticmethod(param_shapes)
+    param_axes = staticmethod(param_axes)
 
-    def _mlp(self, hn: torch.Tensor, layer: int) -> torch.Tensor:
-        """Capacity-based top-k MoE over grouped tokens; ``hn (B, S, D)``."""
+    def _route(self, x: torch.Tensor, w_router: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Top-k routing of ``x (B, G, gs, D)`` by the fp32 router: the
+        dispatch one-hots ``slot`` and the gate-weighted ``combine``, both
+        ``(B, G, gs, E, C)`` fp32."""
         cfg = self.cfg
-        B, S, D = hn.shape
         E, k = cfg.n_experts, cfg.top_k
-        gs = group_size(S)
-        G = S // gs
-        x = hn.reshape(B, G, gs, D)
-
-        # router (fp32)
-        logits = torch.einsum("bgtd,de->bgte", x.float(),
-                              self._w("w_router", layer).float())
+        gs = x.shape[2]
+        logits = torch.einsum("bgtd,de->bgte", x.float(), w_router.float())
         probs = torch.softmax(logits, dim=-1)
         gate, ids = torch.topk(probs, k, dim=-1)  # (B, G, gs, k)
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -93,15 +162,45 @@ class MoELM(DenseLM):
         in_cap = (pos < C) & (sel_te > 0)
         pos = torch.where(in_cap, pos, 0.0).long()
         slot = F.one_hot(pos, C).float() * in_cap[..., None]  # (B,G,gs,E,C)
-        combine = gate_te[..., None] * slot
+        return slot, gate_te[..., None] * slot
 
-        # experts
+    def _mlp(self, hn: torch.Tensor, layer: int) -> torch.Tensor:
+        """Capacity-based top-k MoE over grouped tokens; ``hn (B, S, D)``."""
+        B, S, D = hn.shape
+        gs = group_size(S)
+        x = hn.reshape(B, S // gs, gs, D)
+        w_router = self._w("w_router", layer)
+        if is_sharded(x):
+            from torch.distributed.tensor import Replicate
+
+            # Placements: x keeps its batch shards (dim 0) and is whole
+            # along the groups, the tokens and D; the router weight is
+            # whole on every rank. The router contracts over D, and top-k
+            # and the capacity prefix count run along E and a group's
+            # tokens, so routing is per sequence: each rank routes its own
+            # rows, and slot and combine carry x's batch shards. The
+            # router's gradient is each rank's rows' share: Partial over
+            # the batch shards.
+            mesh = x.device_mesh
+            rows, partial = row_placements(x)
+            whole = (Replicate(),) * mesh.ndim
+            slot, combine = local_call(self._route, mesh, (rows, rows),
+                                       (rows, whole), x, w_router,
+                                       grad_placements=(rows, partial))
+        else:
+            slot, combine = self._route(x, w_router)
+
+        # experts (E over "model": the batch -> expert reshard is the EP
+        # all-to-all of the reference)
+        w_gate, w_up, w_down = (self._w(n, layer)
+                                for n in ("w_gate", "w_up", "w_down"))
+        if is_sharded(w_gate):
+            return _experts_sharded(slot, combine, x, w_gate, w_up,
+                                    w_down).reshape(B, S, D)
         xe = torch.einsum("bgtec,bgtd->bgecd", slot.to(hn.dtype), x)
-        g1 = F.silu(torch.einsum("bgecd,edf->bgecf", xe,
-                                 self._w("w_gate", layer)))
-        u1 = torch.einsum("bgecd,edf->bgecf", xe, self._w("w_up", layer))
-        y = torch.einsum("bgecf,efd->bgecd", g1 * u1,
-                         self._w("w_down", layer))
+        g1 = F.silu(torch.einsum("bgecd,edf->bgecf", xe, w_gate))
+        u1 = torch.einsum("bgecd,edf->bgecf", xe, w_up)
+        y = torch.einsum("bgecf,efd->bgecd", g1 * u1, w_down)
         out = torch.einsum("bgtec,bgecd->bgtd", combine.to(hn.dtype), y)
         return out.reshape(B, S, D)
 

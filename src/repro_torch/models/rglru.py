@@ -40,10 +40,10 @@ from .api import ModelConfig
 from .attention import attend, kv_cache_layer_update, kv_cache_slot_positions
 from .common import (ParamFactory, apply_rope, at_least,
                      causal_depthwise_conv, conv_step, maybe_remat, rms_norm,
-                     rope_frequencies)
+                     rope_frequencies, serve_mode)
 from .family import FamilyLM
 
-__all__ = ["GriffinLM", "GriffinCache", "param_shapes"]
+__all__ = ["GriffinLM", "GriffinCache", "param_shapes", "param_axes"]
 
 RGLRU_C = 8.0
 
@@ -104,6 +104,31 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+#: Logical axes of each leaf of a block, after its leading ``sup`` dim.
+_LEAF_AXES = {
+    "ln": ("embed",), "w_x": ("embed", "rnn"), "w_gate": ("embed", "rnn"),
+    "conv": (None, "rnn"), "w_g2": ("rnn", "rnn2"), "lam": ("rnn",),
+    "w_out": ("rnn", "embed"), "wq": ("embed", "heads_flat"),
+    "wk": ("embed", "kv_flat"), "wv": ("embed", "kv_flat"),
+    "wo": ("heads_flat", "embed"), "ln2": ("embed",),
+    "gg_gate": ("embed", "mlp"), "gg_up": ("embed", "mlp"),
+    "gg_down": ("mlp", "embed"),
+}
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes of a hybrid model's weights."""
+    top = {"embed": ("vocab", "embed"), "ln_f": ("embed",)}
+    out = {}
+    for name in param_shapes(cfg):
+        head, base = name.split(".")[0], name.rsplit(".", 1)[-1]
+        if name in top:
+            out[name] = top[name]
+        else:
+            out[name] = (("sup",) if head == "sup" else ()) + _LEAF_AXES[base]
+    return out
+
+
 def _rglru_gates(r: torch.Tensor, i: torch.Tensor, x: torch.Tensor,
                  lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(a, sqrt(1 - a^2) * (i * x)) of the recurrence, fp32."""
@@ -136,6 +161,7 @@ class GriffinLM(FamilyLM):
     FAMILIES = ("hybrid",)
     FP32_LEAVES = frozenset({"lam"})
     param_shapes = staticmethod(param_shapes)
+    param_axes = staticmethod(param_axes)
 
     def __init__(self, cfg: ModelConfig, **kw):
         self.pattern, self.tail, self.n_sup = _layout(cfg)
@@ -271,6 +297,17 @@ class GriffinLM(FamilyLM):
         return self._masked_logits(rms_norm(h, self.ln_f), self.embed)
 
     # ----------------------------------------------------------------- serve
+    def cache_axes(self) -> GriffinCache:
+        kv = ("sup", "layers", "batch", "seq", "kv_heads", "head_dim")
+        return GriffinCache(
+            rec_h=("sup", "layers", "batch", "rnn"),
+            rec_conv=("sup", "layers", "batch", None, "rnn"),
+            attn_k=kv, attn_v=kv,
+            attn_pos=("sup", "layers", "batch", "seq"),
+            tail_h=("layers", "batch", "rnn"),
+            tail_conv=("layers", "batch", None, "rnn"),
+            length=("batch",))
+
     def make_caches(self, batch: int, s_max: int) -> GriffinCache:
         cfg = self.cfg
         s_cache = max(min(s_max, cfg.window) if cfg.window else s_max, 1)
@@ -311,9 +348,13 @@ class GriffinLM(FamilyLM):
             o = self._attend_fresh(q, k, v, qpos)
         return o.reshape(B, Sq, -1) @ lp["wo"]
 
-    @torch.inference_mode()
     def _step(self, cache: GriffinCache, tokens: torch.Tensor, single: bool
               ) -> tuple[torch.Tensor, GriffinCache]:
+        with serve_mode(cache.rec_h):
+            return self._step_body(cache, tokens, single)
+
+    def _step_body(self, cache: GriffinCache, tokens: torch.Tensor,
+                   single: bool) -> tuple[torch.Tensor, GriffinCache]:
         cfg = self.cfg
         h = self._embed(tokens)
         B, Sq, _ = h.shape

@@ -32,10 +32,11 @@ import torch.nn.functional as F
 
 from .api import ModelConfig
 from .common import (ParamFactory, at_least, causal_depthwise_conv,
-                     conv_step, maybe_remat, rms_norm)
+                     conv_step, is_sharded, local_call, maybe_remat, rms_norm,
+                     serve_mode)
 from .family import FamilyLM
 
-__all__ = ["XLSTMLM", "XLSTMState", "param_shapes"]
+__all__ = ["XLSTMLM", "XLSTMState", "param_shapes", "param_axes"]
 
 CHUNK = 128  # intra-chunk quadratic width of the chunkwise mLSTM
 
@@ -87,6 +88,45 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
             "r": (NH, dh, 4 * dh), "b": (4 * D,), "ln2": (D,),
             "w_mlp_up": (D, d["fs"]), "w_mlp_down": (d["fs"], D)}.items()})
     return shapes
+
+
+#: Logical axes of the mLSTM (``m.``, after ``sup, layers``) and sLSTM
+#: (``s.``, after ``sup``) leaves.
+_M_AXES = {"ln": ("embed",), "w_up": ("embed", "mlp"), "conv": (None, "mlp"),
+           "wq": ("mlp", "heads_flat"), "wk": ("mlp", "heads_flat"),
+           "wv": ("mlp", "mlp"), "w_if": ("mlp", None), "b_if": (None,),
+           "w_down": ("mlp", "embed")}
+_S_AXES = {"ln": ("embed",), "conv": (None, "embed"), "w": ("embed", "mlp"),
+           "r": ("heads", None, None), "b": (None,), "ln2": ("embed",),
+           "w_mlp_up": ("embed", "mlp"), "w_mlp_down": ("mlp", "embed")}
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """State-dict name -> logical axes of an xLSTM model's weights."""
+    top = {"embed": ("vocab", "embed"), "unembed": ("vocab", "embed"),
+           "ln_f": ("embed",)}
+    out = {}
+    for name in param_shapes(cfg):
+        head, _, base = name.partition(".")
+        if name in top:
+            out[name] = top[name]
+        elif head == "m":
+            out[name] = ("sup", "layers") + _M_AXES[base]
+        else:
+            out[name] = ("sup",) + _S_AXES[base]
+    return out
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor per rank (DTensor has no rule for its
+    backward). Elementwise, so each rank's block keeps its placements; a
+    partial sum is reduced first."""
+    if not is_sharded(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_call(F.logsigmoid, x.device_mesh, pl, (pl,), x)
 
 
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -220,6 +260,7 @@ class XLSTMLM(FamilyLM):
     FAMILIES = ("ssm",)
     FP32_LEAVES = frozenset({"b_if", "b"})
     param_shapes = staticmethod(param_shapes)
+    param_axes = staticmethod(param_axes)
 
     def __init__(self, cfg: ModelConfig, **kw):
         d = _dims(cfg)
@@ -265,8 +306,8 @@ class XLSTMLM(FamilyLM):
         k = (xc @ lp["wk"]).reshape(B, S, NH, self.dk)
         v = (xm @ lp["wv"]).reshape(B, S, NH, self.dv)
         gf = _mm32(xc, lp["w_if"].to(xc.dtype)) + lp["b_if"].float()
-        return (q, k, v, F.logsigmoid(gf[..., :NH]),
-                F.logsigmoid(gf[..., NH:]))
+        return (q, k, v, _logsigmoid(gf[..., :NH]),
+                _logsigmoid(gf[..., NH:]))
 
     def _mlstm_seq(self, h, lp):
         """One mLSTM block over a sequence from a zero state; returns
@@ -339,6 +380,15 @@ class XLSTMLM(FamilyLM):
         return self._masked_logits(rms_norm(h, self.ln_f), self.unembed)
 
     # ----------------------------------------------------------------- serve
+    def cache_axes(self) -> XLSTMState:
+        s = ("sup", "batch", "embed")
+        return XLSTMState(
+            m_C=("sup", "layers", "batch", "heads", "head_dim", "mlp"),
+            m_n=("sup", "layers", "batch", "heads", "head_dim"),
+            m_conv=("sup", "layers", "batch", None, "mlp"),
+            s_c=s, s_n=s, s_m=s, s_h=s,
+            s_conv=("sup", "batch", None, "embed"), length=("batch",))
+
     def make_caches(self, batch: int, s_max: int = 0) -> XLSTMState:
         """A zero state (``s_max`` is not used: the state is O(1) in S)."""
         cfg = self.cfg
@@ -400,10 +450,14 @@ class XLSTMLM(FamilyLM):
             @ sp["w_mlp_down"]
         return h + mlp[:, None], c, n, m, hprev, conv_tail
 
-    @torch.inference_mode()
     def decode_step(self, state: XLSTMState, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, XLSTMState]:
         """Append ``tokens (B, 1)``; logits ``(B, 1, vocab)``."""
+        with serve_mode(state.m_C):
+            return self._decode_step(state, tokens)
+
+    def _decode_step(self, state: XLSTMState, tokens: torch.Tensor
+                     ) -> tuple[torch.Tensor, XLSTMState]:
         h = self._embed(tokens)
         for s in range(self.n_sup):
             for j in range(self.pm):
@@ -422,11 +476,15 @@ class XLSTMLM(FamilyLM):
         return logits[..., :self.cfg.vocab], state._replace(
             length=state.length + 1)
 
-    @torch.inference_mode()
     def prefill(self, state: XLSTMState, batch: dict
                 ) -> tuple[torch.Tensor, XLSTMState]:
         """Run the prompt ``batch["tokens"]`` from a zero state (as the
         reference does); last logits ``(B, 1, vocab)``."""
+        with serve_mode(state.m_C):
+            return self._prefill(state, batch)
+
+    def _prefill(self, state: XLSTMState, batch: dict
+                 ) -> tuple[torch.Tensor, XLSTMState]:
         h = self._embed(batch["tokens"])
         S = h.shape[1]
         for s in range(self.n_sup):

@@ -82,14 +82,15 @@ def leaf_order(tree: Mapping[str, torch.Tensor]) -> list[str]:
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
-    """fp32 master copies, zero moments and a 0-d int32 step."""
+    """fp32 master copies, zero moments and a 0-d int32 step. A sharded
+    parameter (a DTensor) gets its master copy and moments sharded alike."""
     dev = next(iter(params.values())).device
     return {
         "master": {k: p.detach().to(torch.float32, copy=True)
                    for k, p in params.items()},
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        "m": {k: torch.zeros_like(p, dtype=torch.float32)
               for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        "v": {k: torch.zeros_like(p, dtype=torch.float32)
               for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }

@@ -9,9 +9,10 @@ tree the step takes and returns is a dict of tensors by state-dict name,
 which may hold another dtype than the model (``apply_updates`` returns
 bf16 by default): the step writes it into the model's parameters (a cast
 up is exact) and gives each gradient in its leaf's dtype, as
-``jax.grad`` gives the gradient of a bf16 leaf in bf16. The reference's
-int8 cross-pod compression waits for ``distributed/`` (ROADMAP queue 1,
-item 11).
+``jax.grad`` gives the gradient of a bf16 leaf in bf16. Sharded, the
+parameters, the optimizer state and the batch are DTensors
+(``launch.train.train_loop(mesh=)``). The reference's int8 cross-pod
+compression waits for ROADMAP queue 1, item 11b.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Callable, Mapping
 
 import torch
 
+from ..models.common import is_sharded
 from .optimizer import OptimizerConfig, apply_updates
 
 __all__ = ["build_train_step", "loss_and_grads"]
@@ -35,7 +37,10 @@ def _load(model: torch.nn.Module, params: Mapping[str, torch.Tensor]
     with torch.no_grad():
         for name, p in leaves.items():
             t = params[name]
-            if t.dtype == p.dtype and t.device == p.device:
+            # a DTensor parameter's ``.data = t`` leaves its local tensor as
+            # it was: a sharded leaf is always copied into
+            if t.dtype == p.dtype and t.device == p.device \
+                    and not is_sharded(p):
                 p.data = t
             elif t is not p:
                 p.data.copy_(t)
@@ -48,15 +53,24 @@ def loss_and_grads(model: torch.nn.Module,
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mark ``model``'s parameters trainable and take the gradient of
     ``loss_fn()`` with respect to each: ``(loss, {name: gradient})``, the
-    loss detached, zeros where the loss does not reach a parameter."""
+    loss detached, zeros where the loss does not reach a parameter. The
+    gradient of a sharded parameter (a DTensor) comes back on the
+    parameter's placements (the reduce-scatter of a data-parallel
+    gradient), as ``jax.grad`` of a sharded leaf has the leaf's sharding."""
     leaves = dict(model.named_parameters())
     for p in leaves.values():
         p.requires_grad_(True)
     loss = loss_fn()
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
-    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                           for (k, p), g in zip(leaves.items(), grads)}
+    out = {}
+    for (k, p), g in zip(leaves.items(), grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif is_sharded(p):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[k] = g
+    return loss.detach(), out
 
 
 def build_train_step(model, opt_cfg: OptimizerConfig, *,
@@ -88,7 +102,7 @@ def build_train_step(model, opt_cfg: OptimizerConfig, *,
         n = b // microbatches
         dev = next(iter(leaves.values())).device
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc = {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        acc = {k: torch.zeros_like(t, dtype=torch.float32)
                for k, t in leaves.items()}
         for i in range(microbatches):
             loss_i, g_i = value_and_grad(

@@ -23,14 +23,23 @@ across layers in kind, bytes, groups and position are folded into one op
 with ``trip_mult`` the layer count. Collectives re-issued by remat's
 recompute are real traffic and stay.
 
-``hbm_bytes`` (the reference's estimate of HBM traffic at fusion
-boundaries) has no counterpart without a compiler and is ``None``.
+``hbm_bytes`` is the per-rank memory traffic: the operand and result bytes
+of every local compute op that reaches the dispatcher (the rank's blocks,
+views and allocations excluded, collectives counted apart above). The
+reference estimates HBM traffic at the surfaces of XLA's fusions; eager
+PyTorch runs each op as a kernel of its own, whose operands are read from
+and whose results are written to device memory, so the sum over ops is
+the port's counterpart of the fusion-surface estimate: an unfused count,
+an upper bound on what a fused step would move. An in-place op counts its
+destination both as read and as written.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
 from typing import Callable
+
+import torch
 
 from ..models import common as mcommon
 
@@ -72,12 +81,12 @@ class CollectiveOp:
 
 @dataclasses.dataclass
 class HLOAnalysis:
-    """The reference's record of a step. ``flops`` is per rank and counts
-    every layer; ``hbm_bytes`` is ``None`` (no compiler, no fusion
-    boundaries to count at)."""
+    """The reference's record of a step. ``flops`` and ``hbm_bytes`` are
+    per rank and count every layer; ``hbm_bytes`` is the unfused sum of
+    the compute ops' operand and result bytes."""
 
     flops: float
-    hbm_bytes: float | None
+    hbm_bytes: float
     collectives: list[CollectiveOp]
 
     @property
@@ -123,9 +132,26 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+#: ops that allocate without reading or writing data
+_ALLOCS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                     "new_empty_strided"})
+
+
+def _op_bytes(func, args, kwargs, out) -> int:
+    """Operand and result bytes of one local compute op (0 for a view or
+    an allocation)."""
+    from torch.utils._pytree import tree_leaves
+
+    if func.is_view or func._overloadpacket.__name__ in _ALLOCS:
+        return 0
+    return sum(_nbytes(t) for t in tree_leaves((args, kwargs, out))
+               if isinstance(t, torch.Tensor))
+
+
 class _Recorder:
     """The dispatch mode of one trace: ``records`` holds, per collective,
-    ``(layer tag, kind, operand bytes, result bytes, group name)``."""
+    ``(layer tag, kind, operand bytes, result bytes, group name)``;
+    ``flops`` and ``hbm_bytes`` add up the local compute ops."""
 
     def __init__(self):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -136,6 +162,7 @@ class _Recorder:
         rec = self
         self.records: list[tuple] = []
         self.flops = 0
+        self.hbm_bytes = 0
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -151,14 +178,18 @@ class _Recorder:
                     return out
                 packet = func._overloadpacket
                 name = packet.__name__
+                if "c10d" in func.namespace:
+                    # the functional collectives and their bookkeeping
+                    if name in _KINDS:
+                        group = [a for a in args if isinstance(a, str)][-1]
+                        rec.records.append((mcommon.LAYER_TAGS[1],
+                                            _KINDS[name], _nbytes(args[0]),
+                                            _nbytes(out), group))
+                    return out
                 if packet in flop_registry:
                     rec.flops += flop_registry[packet](*args, **kwargs,
                                                        out_val=out)
-                elif name in _KINDS and "c10d" in str(packet):
-                    group = [a for a in args if isinstance(a, str)][-1]
-                    rec.records.append((mcommon.LAYER_TAGS[1], _KINDS[name],
-                                        _nbytes(args[0]), _nbytes(out),
-                                        group))
+                rec.hbm_bytes += _op_bytes(func, args, kwargs, out)
                 return out
 
         self.mode = Mode()
@@ -196,8 +227,9 @@ def _fold(records: list[tuple], groups: dict) -> list[CollectiveOp]:
 
 def analyze_step(fn: Callable, *args, mesh, **kwargs) -> HLOAnalysis:
     """Run ``fn(*args, **kwargs)`` (a train, prefill or decode step on
-    DTensors on ``mesh``) and return its per-rank collectives and FLOPs,
-    the layers folded. The step's own result is dropped."""
+    DTensors on ``mesh``) and return its per-rank collectives, FLOPs and
+    memory traffic, the layers folded. The step's own result is
+    dropped."""
     groups = _mesh_groups(mesh)
     rec = _Recorder()
     prev = mcommon.LAYER_TAGS[:]
@@ -207,5 +239,6 @@ def analyze_step(fn: Callable, *args, mesh, **kwargs) -> HLOAnalysis:
             fn(*args, **kwargs)
     finally:
         mcommon.LAYER_TAGS[:] = prev
-    return HLOAnalysis(flops=float(rec.flops), hbm_bytes=None,
+    return HLOAnalysis(flops=float(rec.flops),
+                       hbm_bytes=float(rec.hbm_bytes),
                        collectives=_fold(rec.records, groups))

@@ -7,12 +7,13 @@ Port of ``repro.analysis.roofline``:
     memory     = HBM_bytes / HBM_bw               [per rank]
     collective = collective_bytes / NVLink_bw     [per rank]
 
-FLOPs and collective bytes come from ``analysis.collectives.analyze_step``,
-per rank. ``collective`` uses the summed *operand* bytes of every
-collective (the reference's definition); the ring-model wire bytes are
-also reported. The port has no compiler and so no HBM estimate: while
-``hbm_bytes`` is ``None``, ``memory_s`` is ``None`` and the dominant term
-and the bound are taken over the other two.
+FLOPs, HBM bytes and collective bytes come from
+``analysis.collectives.analyze_step``, per rank. ``memory`` divides the
+unfused sum of the compute ops' operand and result bytes (eager PyTorch's
+kernels, the port's counterpart of the reference's fusion surfaces).
+``collective`` uses the summed *operand* bytes of every collective (the
+reference's definition); the ring-model wire bytes are also reported. The
+dominant term and the bound are taken over all three, as in the reference.
 
 MODEL_FLOPS is the analytic useful compute (6·N·D for training a dense
 model on D tokens, 2·N·D for inference; N_active for MoE), used to report
@@ -34,29 +35,25 @@ class RooflineTerms:
     mesh: str
     chips: int
     compute_s: float
-    memory_s: float | None
+    memory_s: float
     collective_s: float
     hlo_flops: float  # per rank
-    hlo_bytes: float | None  # per rank
+    hlo_bytes: float  # per rank
     collective_bytes: float  # per rank (operand-sum definition)
     wire_bytes: float  # ring-model per rank
     model_flops_global: float
     collective_counts: dict
 
-    def _terms(self) -> dict:
-        terms = {"compute": self.compute_s, "memory": self.memory_s,
-                 "collective": self.collective_s}
-        return {k: v for k, v in terms.items() if v is not None}
-
     @property
     def dominant(self) -> str:
-        terms = self._terms()
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
         return max(terms, key=terms.get)
 
     @property
     def bound_s(self) -> float:
         """Idealised step time if terms overlap perfectly = max term."""
-        return max(self._terms().values())
+        return max(self.compute_s, self.memory_s, self.collective_s)
 
     @property
     def useful_fraction(self) -> float:
@@ -90,14 +87,13 @@ class RooflineTerms:
 def roofline_terms(arch: str, shape: str, mesh_name: str, chips: int,
                    analysis, model_flops_global: float) -> RooflineTerms:
     """The terms of ``analysis`` (an ``analysis.collectives.HLOAnalysis``)."""
-    hbm = analysis.hbm_bytes
     return RooflineTerms(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         compute_s=analysis.flops / hw.PEAK_FLOPS_BF16,
-        memory_s=None if hbm is None else hbm / hw.HBM_BW,
+        memory_s=analysis.hbm_bytes / hw.HBM_BW,
         collective_s=analysis.collective_operand_bytes / hw.NVLINK_BW,
         hlo_flops=analysis.flops,
-        hlo_bytes=hbm,
+        hlo_bytes=analysis.hbm_bytes,
         collective_bytes=analysis.collective_operand_bytes,
         wire_bytes=analysis.collective_wire_bytes,
         model_flops_global=model_flops_global,

@@ -1,5 +1,6 @@
-"""The reference's ``distributed/``: the checkpointer (``checkpoint``), the
-step watchdog (``fault``) and the logical-axis sharding planner on
-``DeviceMesh`` and DTensor placements (``sharding``). Int8 cross-pod
-compression, ``ElasticTrainer`` and restoring a checkpoint onto other
-shardings wait for ROADMAP queue 1, item 11b."""
+"""The reference's ``distributed/``: sharded checkpoints and their restore
+onto other shardings (``checkpoint``), the step watchdog and the elastic
+trainer with its fabric wiring (``fault``), int8 cross-pod gradient
+compression with error feedback (``compression``) and the logical-axis
+sharding planner on ``DeviceMesh`` and DTensor placements
+(``sharding``)."""

@@ -1,4 +1,5 @@
-"""Checkpointing with a manifest and content hashes, and async writes.
+"""Sharded checkpointing with a manifest and content hashes, async writes,
+and restore onto other shardings.
 
 Port of ``repro.distributed.checkpoint``, with the reference's layout on
 disk, so that a checkpoint written by either package restores in the
@@ -16,9 +17,16 @@ the dict keys with "/", and a dotted state-dict name counts as a path, so
 key of the same leaf. bf16 is stored as its ``uint16`` bits (numpy has no
 bf16) and the manifest keeps the logical dtype; the hash is of the stored
 bytes. Writes are atomic (a ``.tmp`` directory, then a rename) and, through
-``AsyncCheckpointer``, run on a writer thread. The reference's resharding
-on restore (``shardings=``) waits for ROADMAP queue 1, item 11b: a leaf is
-restored onto the target leaf's dtype and device.
+``AsyncCheckpointer``, run on a writer thread.
+
+Sharded trees (one process per rank): a DTensor leaf is written whole, so
+every rank of its mesh takes part in its ``full_tensor()`` gather, and
+the mesh's first rank (``writer_rank``) alone writes, renames and deletes
+old steps. The save ends in a barrier over the mesh, so no rank reads a
+step that is still ``.tmp``. On restore
+(``shardings=``) each rank reads only its block of each file (``np.load``
+memory-mapped, then the slice of ``distributed.sharding.local_slices``)
+and builds the leaf with ``DTensor.from_local``, as ``shard_tensor`` does.
 """
 from __future__ import annotations
 
@@ -34,10 +42,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..models.common import is_sharded
 from ..train.optimizer import leaf_order
+from .sharding import local_slices, mesh_axes
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "AsyncCheckpointer",
-           "latest_step"]
+           "latest_step", "writer_rank"]
 
 Tree = Any
 
@@ -62,8 +72,53 @@ def _unflatten_like(target: Tree, leaves: dict[str, Any],
             for k, v in target.items()}
 
 
+def writer_rank(mesh) -> int:
+    """The global rank that writes a sharded tree on ``mesh``: its first."""
+    return int(mesh.mesh.flatten()[0])
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this process writes a tree on ``mesh``: always for a tree
+    without DTensors, else where it is the mesh's ``writer_rank``."""
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == writer_rank(mesh)
+
+
+def _mesh_of(tree: Tree):
+    """The mesh of the tree's first DTensor leaf (``None``: no DTensor)."""
+    for leaf in _flatten_with_keys(tree).values():
+        if is_sharded(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _barrier(mesh) -> None:
+    """Wait for every rank of ``mesh``: a barrier on each of its dims in
+    turn (after the last one, every rank of the mesh has reached the
+    first)."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return
+    for d in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(d))
+
+
+def _snapshot(tree: Tree, keep: bool = True) -> Tree:
+    """Host copies of every leaf, taken now, a DTensor gathered whole
+    (every rank of its mesh takes part); ``None`` where not ``keep``."""
+    if isinstance(tree, Mapping):
+        out = {k: _snapshot(v, keep) for k, v in tree.items()}
+        return out if keep else None
+    if isinstance(tree, torch.Tensor):
+        t = tree.full_tensor() if is_sharded(tree) else tree
+        return t.detach().to("cpu", copy=True) if keep else None
+    return np.array(tree) if keep else None
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(stored array, logical dtype) of a tensor or array leaf."""
+    """(stored array, logical dtype) of a host tensor or array leaf."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -74,18 +129,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _snapshot(tree: Tree) -> Tree:
-    """Host copies of every leaf, taken now."""
-    if isinstance(tree, Mapping):
-        return {k: _snapshot(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    return np.array(tree)
-
-
-def save_checkpoint(directory: str, step: int, tree: Tree, *,
-                    extra: dict | None = None) -> str:
-    """Write a checkpoint synchronously; returns the final path."""
+def _write(directory: str, step: int, tree: Tree, extra: dict | None
+           ) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
@@ -97,13 +142,33 @@ def save_checkpoint(directory: str, step: int, tree: Tree, *,
         np.save(os.path.join(tmp, "arrays", fname), arr)
         manifest["leaves"][key] = {
             "file": fname, "shape": list(arr.shape), "dtype": logical,
-            "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "sha256": _sha256(arr),
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as fh:
         json.dump(manifest, fh, indent=1)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    return final
+
+
+def _sha256(arr: np.ndarray) -> str:
+    """The hash of ``arr.tobytes()``, read in place (a memory-mapped file
+    is not copied)."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    return hashlib.sha256(flat.view(np.uint8)).hexdigest()
+
+
+def save_checkpoint(directory: str, step: int, tree: Tree, *,
+                    extra: dict | None = None) -> str:
+    """Write a checkpoint synchronously; returns the final path. Every rank
+    of a sharded tree's mesh calls it; the mesh's first rank writes."""
+    mesh = _mesh_of(tree)
+    host = _snapshot(tree, keep=_is_writer(mesh))
+    final = os.path.join(directory, f"step_{step:08d}")
+    if host is not None:
+        final = _write(directory, step, host, extra)
+    _barrier(mesh)
     return final
 
 
@@ -119,59 +184,108 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target: Tree, *,
+def _global_stride(shape: tuple) -> tuple:
+    return torch.empty(shape, device="meta").stride()
+
+
+def restore_checkpoint(directory: str, step: int, target: Tree,
+                       shardings: Tree | None = None, *,
                        verify: bool = True) -> Tree:
-    """Restore onto ``target``'s structure (a nested dict of tensors): each
-    leaf a tensor of the target leaf's dtype on its device. Raises ``KeyError`` for a missing
-    leaf, ``IOError`` for a content hash that does not match (``verify``)
-    and ``ValueError`` for a shape that differs."""
+    """Restore onto ``target``'s structure (a nested dict of tensors).
+
+    Without a sharding a leaf comes back whole, a tensor of the target
+    leaf's dtype on its device. ``shardings`` is a tree of the same keys
+    whose leaves are ``sharding.NamedSharding(mesh, plan)`` (a
+    ``DeviceMesh`` and a ``ShardPlan`` of ``plan_tree``) or ``None``; a
+    missing key counts as ``None``. Such a leaf comes back as a DTensor on
+    ``mesh`` with ``plan``'s placements, of the target leaf's dtype, built
+    from this rank's block alone, whatever mesh wrote the checkpoint;
+    this rank must belong to ``mesh``. Raises ``KeyError`` for a missing
+    leaf, ``IOError`` for a content hash (of the whole stored array) that
+    does not match (``verify``) and ``ValueError`` for a shape that
+    differs."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as fh:
         manifest = json.load(fh)
+    sh_leaves = _flatten_with_keys(shardings) if shardings is not None \
+        else {}
     out = {}
     for key, tgt in _flatten_with_keys(target).items():
         meta = manifest["leaves"].get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = np.load(os.path.join(path, "arrays", meta["file"]))
-        if verify:
-            h = hashlib.sha256(arr.tobytes()).hexdigest()
-            if h != meta["sha256"]:
-                raise IOError(f"hash mismatch for {key!r}: corrupt checkpoint")
-        if tuple(arr.shape) != tuple(tgt.shape):
+        arr = np.load(os.path.join(path, "arrays", meta["file"]),
+                      mmap_mode="r")
+        if verify and _sha256(arr) != meta["sha256"]:
+            raise IOError(f"hash mismatch for {key!r}: corrupt checkpoint")
+        shape = tuple(arr.shape)
+        if shape != tuple(tgt.shape):
             raise ValueError(f"{key}: shape {arr.shape} != target "
                              f"{tuple(tgt.shape)}")
-        t = torch.from_numpy(arr.copy())  # writable, and 0-d stays 0-d
+        sh = sh_leaves.get(key)
+        if sh is not None:
+            mesh, plan = sh
+            coord = mesh.get_coordinate()
+            if coord is None:
+                raise ValueError(f"{key}: this rank is not in the mesh it "
+                                 "is restored onto")
+            sizes = mesh_axes(mesh)
+            arr = arr[local_slices(shape, sizes, dict(zip(sizes, coord)),
+                                   plan.spec)]
+        t = torch.from_numpy(np.array(arr))  # writable, and 0-d stays 0-d
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
-        out[key] = t.to(device=tgt.device, dtype=tgt.dtype)
+        if sh is None:
+            out[key] = t.to(device=tgt.device, dtype=tgt.dtype)
+            continue
+        from torch.distributed.tensor import DTensor
+
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+        out[key] = DTensor.from_local(
+            t.to(device=dev, dtype=tgt.dtype), mesh, plan.placements,
+            run_check=False, shape=torch.Size(shape),
+            stride=_global_stride(shape))
     return _unflatten_like(target, out)
 
 
 class AsyncCheckpointer:
     """Background-thread checkpoint writer: ``save`` copies the tree to the
-    host and returns; ``wait`` joins the writer and raises its first error.
-    After each write the oldest steps beyond ``keep`` are deleted."""
+    host and returns; ``flush`` waits for the writes queued so far,
+    ``wait`` also ends the writer; both then wait for every rank of the
+    mesh they are given (the ranks that read the checkpoints next, with
+    the writer) and raise the writer's first error. After each write the
+    oldest steps beyond ``keep`` are deleted. Sharded, every rank of the
+    mesh saves (each takes part in the gathers) and the mesh's first rank
+    (``writer_rank``) alone queues and writes. ``timings`` holds one dict a save:
+    ``step``, ``snapshot_s`` (the gathers and the host copy, in ``save``)
+    and, where this rank writes, ``write_s`` (the files and their hashes,
+    on the writer thread)."""
 
     def __init__(self, directory: str, *, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self._q: queue.Queue = queue.Queue()
         self._err: list[BaseException] = []
+        self.timings: list[dict] = []
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
     def _worker(self):
         while True:
             item = self._q.get()
-            if item is None:
-                return
-            step, host_tree, extra = item
             try:
-                save_checkpoint(self.directory, step, host_tree, extra=extra)
+                if item is None:
+                    return
+                step, host_tree, extra, timing = item
+                t0 = time.perf_counter()
+                _write(self.directory, step, host_tree, extra)
+                timing["write_s"] = time.perf_counter() - t0
                 self._gc()
-            except BaseException as e:  # surfaced on wait()
+            except BaseException as e:  # surfaced on flush() and wait()
                 self._err.append(e)
+            finally:
+                self._q.task_done()
 
     def _gc(self):
         for s in _steps(self.directory)[: -self.keep]:
@@ -181,10 +295,28 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Tree, *, extra: dict | None = None):
         # the host copy is taken now: the step after this one replaces the
         # parameters and updates the optimizer state in place
-        self._q.put((step, _snapshot(tree), extra))
+        mesh = _mesh_of(tree)
+        t0 = time.perf_counter()
+        host = _snapshot(tree, keep=_is_writer(mesh))
+        timing = {"step": step, "snapshot_s": time.perf_counter() - t0}
+        self.timings.append(timing)
+        if host is not None:
+            self._q.put((step, host, extra, timing))
 
-    def wait(self):
-        self._q.put(None)
-        self._thread.join()
+    def _done(self, mesh):
+        _barrier(mesh)
         if self._err:
             raise self._err[0]
+
+    def flush(self, mesh=None):
+        """Wait for the queued writes, then for every rank of ``mesh`` (a
+        ``DeviceMesh``; ``None``: for no other rank)."""
+        self._q.join()
+        self._done(mesh)
+
+    def wait(self, mesh=None):
+        """End the writer, then wait for every rank of ``mesh`` (as
+        ``flush``)."""
+        self._q.put(None)
+        self._thread.join()
+        self._done(mesh)

@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import torch
 
 __all__ = ["RuleSet", "TRAIN_RULES", "SERVE_RULES", "ShardPlan",
+           "NamedSharding",
            "abstract_mesh", "mesh_axes", "plan_sharding", "plan_tree",
            "batch_spec", "local_slices", "shard_tensor", "shard_tree",
            "shard_module"]
@@ -124,6 +125,15 @@ class ShardPlan:
 
     spec: tuple
     placements: tuple
+
+
+class NamedSharding(NamedTuple):
+    """A leaf of a shardings tree (``checkpoint.restore_checkpoint``): a
+    ``DeviceMesh`` and a plan on it, as JAX's ``NamedSharding`` pairs a
+    mesh and a spec."""
+
+    mesh: Any
+    plan: ShardPlan
 
 
 def _placements(axes: dict[str, int], spec: tuple) -> tuple:

@@ -11,8 +11,9 @@ bf16 by default): the step writes it into the model's parameters (a cast
 up is exact) and gives each gradient in its leaf's dtype, as
 ``jax.grad`` gives the gradient of a bf16 leaf in bf16. Sharded, the
 parameters, the optimizer state and the batch are DTensors
-(``launch.train.train_loop(mesh=)``). The reference's int8 cross-pod
-compression waits for ROADMAP queue 1, item 11b.
+(``launch.train.train_loop(mesh=)``); the int8 cross-pod compression of
+``distributed.compression`` takes each pod's gradients from
+:func:`batch_grads` on the pod's sub-mesh.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from ..models.common import is_sharded
 from .optimizer import OptimizerConfig, apply_updates
 
-__all__ = ["build_train_step", "loss_and_grads"]
+__all__ = ["build_train_step", "batch_grads", "loss_and_grads"]
 
 
 def _load(model: torch.nn.Module, params: Mapping[str, torch.Tensor]
@@ -73,50 +74,59 @@ def loss_and_grads(model: torch.nn.Module,
     return loss.detach(), out
 
 
-def build_train_step(model, opt_cfg: OptimizerConfig, *,
-                     microbatches: int = 1,
-                     grad_transform: Callable[[dict], dict] | None = None):
-    """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``.
+def batch_grads(model, params: Mapping[str, torch.Tensor], batch: dict, *,
+                microbatches: int = 1
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Write ``params`` into ``model`` and take ``(loss, {name: gradient})``
+    of ``model.loss`` over ``batch``, each gradient in its leaf's dtype.
 
     ``microbatches > 1`` splits every batch tensor into that many equal
     slices along its first dim and accumulates the gradients in fp32 over
     them (one slice's activations alive at a time), averaging the loss, as
     the reference's scan does; ``microbatches == 1`` leaves each gradient
-    in its parameter's dtype. ``grad_transform`` processes the gradients
-    after accumulation. ``metrics`` are 0-d tensors: ``loss``,
-    ``grad_norm``, ``lr`` and ``param_norm``.
+    in its parameter's dtype.
+    """
+    leaves = _load(model, params)
+
+    def value_and_grad(mb):
+        loss, grads = loss_and_grads(model, lambda: model.loss(mb))
+        return loss, {k: g.to(params[k].dtype) for k, g in grads.items()}
+
+    if microbatches == 1:
+        return value_and_grad(batch)
+    b = next(iter(batch.values())).shape[0]
+    if b % microbatches:
+        raise ValueError(f"batch {b} does not split into {microbatches} "
+                         "microbatches")
+    n = b // microbatches
+    dev = next(iter(leaves.values())).device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = {k: torch.zeros_like(t, dtype=torch.float32)
+           for k, t in leaves.items()}
+    for i in range(microbatches):
+        loss_i, g_i = value_and_grad(
+            {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+        loss = loss + loss_i
+        for k, g in g_i.items():
+            acc[k] += g.float()
+        del g_i
+    inv = 1.0 / microbatches
+    return loss * inv, {k: g * inv for k, g in acc.items()}
+
+
+def build_train_step(model, opt_cfg: OptimizerConfig, *,
+                     microbatches: int = 1,
+                     grad_transform: Callable[[dict], dict] | None = None):
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``: :func:`batch_grads` over ``microbatches``, then
+    AdamW. ``grad_transform`` processes the gradients after accumulation.
+    ``metrics`` are 0-d tensors: ``loss``, ``grad_norm``, ``lr`` and
+    ``param_norm``.
     """
 
-    def grads_of(leaves, params, batch):
-        def value_and_grad(mb):
-            loss, grads = loss_and_grads(model, lambda: model.loss(mb))
-            return loss, {k: g.to(params[k].dtype) for k, g in grads.items()}
-
-        if microbatches == 1:
-            return value_and_grad(batch)
-        b = next(iter(batch.values())).shape[0]
-        if b % microbatches:
-            raise ValueError(f"batch {b} does not split into {microbatches} "
-                             "microbatches")
-        n = b // microbatches
-        dev = next(iter(leaves.values())).device
-        loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc = {k: torch.zeros_like(t, dtype=torch.float32)
-               for k, t in leaves.items()}
-        for i in range(microbatches):
-            loss_i, g_i = value_and_grad(
-                {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
-            loss = loss + loss_i
-            for k, g in g_i.items():
-                acc[k] += g.float()
-            del g_i
-        inv = 1.0 / microbatches
-        return loss * inv, {k: g * inv for k, g in acc.items()}
-
     def train_step(params, opt_state, batch):
-        leaves = _load(model, params)
-        loss, grads = grads_of(leaves, params, batch)
+        loss, grads = batch_grads(model, params, batch,
+                                  microbatches=microbatches)
         if grad_transform is not None:
             grads = grad_transform(grads)
         new_params, opt_state, metrics = apply_updates(opt_cfg, grads,

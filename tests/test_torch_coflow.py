@@ -173,7 +173,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.obs.clock, repro_torch.obs.metrics, "
             "repro_torch.obs.trace, repro_torch.service, "
             "repro_torch.service.admission, repro_torch.service.cache, "
-            "repro_torch.service.manager, repro_torch.service.program\n"
+            "repro_torch.service.manager, repro_torch.service.program, "
+            "repro_torch.distributed.checkpoint, "
+            "repro_torch.distributed.compression, "
+            "repro_torch.distributed.sharding, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun, repro_torch.comm, "
+            "repro_torch.analysis.collectives\n"
+            "from repro_torch.distributed.fault import ElasticTrainer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

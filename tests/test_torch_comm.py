@@ -78,7 +78,7 @@ def test_demands_and_coflows_bit_equal(ops, mesh_shape):
         assert (r.wire_bytes, r.total_operand_bytes) == \
             (p.wire_bytes, p.total_operand_bytes)
     ran = ref_hlo.HLOAnalysis(flops=0.0, hbm_bytes=0.0, collectives=rops)
-    pan = port_coll.HLOAnalysis(flops=0.0, hbm_bytes=None, collectives=pops)
+    pan = port_coll.HLOAnalysis(flops=0.0, hbm_bytes=0.0, collectives=pops)
     assert ran.collective_counts() == pan.collective_counts()
     assert ran.collective_operand_bytes == pan.collective_operand_bytes
     assert ran.collective_wire_bytes == pan.collective_wire_bytes

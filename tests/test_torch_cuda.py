@@ -703,3 +703,107 @@ def test_pallas_training_raises_on_the_card(dev):
     with pytest.raises(ValueError, match="no backward"):
         model.loss({"tokens": tokens, "labels": tokens})
     assert fa.launches == before
+
+
+@pytest.fixture
+def nccl_world(dev):
+    """An NCCL process group of one rank on the card, for a 1x1 mesh."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_checkpoint_round_trip_on_the_card(dev, nccl_world,
+                                                   tmp_path):
+    """``train_loop(mesh=1x1, ckpt_dir=)`` saves a sharded state whole; it
+    restores onto the run's shardings on the card, bytes equal, and a
+    resumed run continues the uninterrupted one (1e-6)."""
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    from repro_torch.distributed.sharding import (TRAIN_RULES, NamedSharding,
+                                                  plan_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=128,
+                      n_heads=2, n_kv_heads=1, d_ff=256, vocab=500,
+                      attention_impl="chunked")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    kw = dict(global_batch=4, seq_len=256, log_every=0,
+              opt_cfg=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                      total_steps=4))
+    whole = train_loop(cfg, mesh=mesh, steps=4, **kw)
+    first = train_loop(cfg, mesh=mesh, steps=2, ckpt_dir=str(tmp_path),
+                       ckpt_every=2, **kw)
+    plan = plan_tree(mesh, first.params, first.model.param_axes(cfg),
+                     TRAIN_RULES)
+    named = {k: NamedSharding(mesh, p) for k, p in plan.items()}
+    got = restore_checkpoint(str(tmp_path), 2, {"params": first.params},
+                             {"params": named})
+    for k, t in got["params"].items():
+        assert t.device_mesh is mesh and t.to_local().device.type == "cuda"
+        assert torch.equal(t.to_local(), first.params[k].to_local()), k
+    resumed = train_loop(cfg, mesh=mesh, steps=4, ckpt_dir=str(tmp_path),
+                         ckpt_every=100, **kw)
+    np.testing.assert_allclose([h["loss"] for h in resumed.history],
+                               [h["loss"] for h in whole.history[2:]],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2049, 300_000])
+def test_quantize_on_the_card_equals_the_cpu(dev, n):
+    from repro_torch.distributed.compression import (dequantize_int8,
+                                                     quantize_int8)
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal(n) * 3).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, s = quantize_int8(x.to(dtype))
+        qc, sc = quantize_int8(x.to(dtype).to(dev))
+        assert torch.equal(qc.cpu(), q)
+        assert torch.equal(sc.cpu().view(torch.int32), s.view(torch.int32))
+        back = dequantize_int8(qc, sc, (n,), torch.float32)
+        assert torch.equal(back.cpu(), dequantize_int8(q, s, (n,),
+                                                       torch.float32))
+
+
+def test_elastic_fabric_wiring_on_the_card(dev, tmp_path):
+    """``ElasticTrainer``'s shrink and grow drive a CUDA ``FabricManager``
+    as they drive a CPU one: the same events and the same program."""
+    import types
+
+    from repro_torch.distributed.fault import ElasticTrainer
+    from repro_torch.service import FabricConfig, FabricManager
+
+    def build(mesh):
+        return (lambda s, b: (s, {}), lambda: {}, lambda s: {})
+
+    meshes = [types.SimpleNamespace(shape={"data": 8}),
+              types.SimpleNamespace(shape={"data": 4})]
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        mgr = FabricManager(FabricConfig(rates=(10.0, 20.0, 30.0),
+                                         delta=8.0, N=6), device=d)
+        mgr.submit(port.Coflow(cid=0, demand=torch.eye(
+            6, dtype=torch.float64, device=d) * 50.0), 1.0)
+        mgr.tick(2.0)
+        tr = ElasticTrainer(build, meshes, str(tmp_path / d.type),
+                            fabric=mgr, mesh_cores=[(0, 1, 2), (0, 1)])
+        tr.shrink()
+        tr.grow()
+        mgr.flush()
+        program = mgr.program()
+        program.validate()
+        tr.ckpt.wait()
+        runs[d.type] = (tr.events, program)
+    (ev_card, p_card), (ev_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    assert ev_card == ev_cpu and ev_card[1]["aborted"] > 0
+    assert p_card.core.device.type == "cuda"
+    for name in ("core", "ingress", "egress", "cid", "size", "t_establish",
+                 "t_complete"):
+        assert torch.equal(getattr(p_card, name).cpu(),
+                           getattr(p_cpu, name)), name

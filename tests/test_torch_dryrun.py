@@ -18,17 +18,26 @@ runs in a second one:
   - the per-rank matmul FLOPs of a forward pass, times 8, equal a hand
     count of the model's products;
   - ``lower_cell`` runs a train, a prefill and a decode cell, each with a
-    peak-memory estimate at least its arguments' bytes;
+    peak-memory estimate at least its arguments' bytes and a finite
+    memory term;
+  - the memory term of a hand-countable step (one product and one add on
+    a 2x2 mesh) is exactly its operand and result bytes, and a TinyLlama
+    smoke decode cell names memory dominant;
+  - the peak estimate of a 1x1 train cell (2 microbatches) equals
+    MemTracker's peak of the same step on real CPU tensors;
   - ``shard_tree``'s local blocks on (2, 2, 2), rank by rank, equal JAX's
     ``NamedSharding.devices_indices_map`` (8 host devices).
 """
 import json
+import math
 import os
 import subprocess
 import sys
 import textwrap
 
 import pytest
+
+from repro_torch.analysis import hw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -118,6 +127,54 @@ TRACES = PRELUDE + textwrap.dedent("""
                               "peak": row["memory"]["peak_estimate_bytes"],
                               "counts": an.collective_counts(),
                               "flops": an.flops, "roofline": row["roofline"]}
+    # one product and one add, per rank: x (4, 16) @ w (16, 32) -> y
+    # (4, 32), then y + y
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    x = DTensor.from_local(torch.empty((4, 16), device="meta"), mesh22,
+                           (Shard(0), Replicate()), run_check=False,
+                           shape=(8, 16), stride=(16, 1))
+    w = DTensor.from_local(torch.empty((16, 32), device="meta"), mesh22,
+                           (Replicate(), Replicate()), run_check=False)
+
+    def hand(x, w):
+        y = x @ w
+        return y + y
+
+    out["hand_bytes"] = analyze_step(hand, x, w, mesh=mesh22).hbm_bytes
+
+    # the peak estimate of a 1x1 train cell (2 microbatches, "chunked")
+    # against MemTracker on the same step of real CPU tensors, unsharded
+    import dataclasses
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from repro_torch.configs import get_arch
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import build_train_step
+    small = dataclasses.replace(tiny(), attention_impl="chunked", n_layers=2,
+                                vocab=512)
+    mesh11 = make_mesh((1, 1), ("data", "model"))
+    row = lower_cell(small, ShapeSpec("p", "train", 2048, 4), mesh11, "1x1",
+                     remat=small.remat_policy, microbatches=2)
+    out["peak_estimate"] = row["memory"]["peak_estimate_bytes"]
+    real = build_model(small, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    params = {k: p.detach() for k, p in real.named_parameters()}
+    opt = init_opt_state(params)
+    toks = torch.zeros((4, 2048), dtype=torch.int32)
+    tracker = MemTracker()
+    tracker.track_external(real, *params.values(), *(
+        t for g in ("master", "m", "v") for t in opt[g].values()), toks,
+        toks)
+    with tracker:
+        build_train_step(real, OptimizerConfig(), microbatches=2)(
+            params, opt, {"tokens": toks, "labels": toks})
+    out["peak_real"] = sum(d["Total"] for d in
+                           tracker.get_tracker_snapshot("peak").values())
+
+    smoke = get_arch("tinyllama-1.1b").smoke
+    row = lower_cell(smoke, ShapeSpec("d", "decode", 64, 8), mesh, "2x2x2")
+    row.pop("analysis")
+    out["smoke_decode"] = row["roofline"]
     print(json.dumps(out))
 """)
 
@@ -177,10 +234,39 @@ def test_lower_cell_train_prefill_decode(traces):
         assert cell["peak"] is not None and cell["peak"] >= cell["args"]
         assert sum(cell["counts"].values()) > 0 and cell["flops"] > 0, kind
         rf = cell["roofline"]
-        assert rf["memory_s"] is None and rf["hlo_bytes_per_chip"] is None
+        assert math.isfinite(rf["memory_s"]) and rf["memory_s"] > 0, kind
+        assert rf["memory_s"] == rf["hlo_bytes_per_chip"] / hw.HBM_BW
         assert rf["compute_s"] > 0 and rf["collective_s"] > 0
-        assert rf["dominant"] in ("compute", "collective")
+        terms = {k: rf[f"{k}_s"] for k in ("compute", "memory",
+                                            "collective")}
+        assert rf["dominant"] == max(terms, key=terms.get)
     assert traces["cells"]["train"]["counts"].get("reduce-scatter", 0) > 0
+
+
+def test_memory_term_of_a_hand_countable_step(traces):
+    """Per rank: the product reads x (4, 16) and w (16, 32) and writes y
+    (4, 32); the add reads y twice and writes its sum; fp32."""
+    mm = (4 * 16 + 16 * 32 + 4 * 32) * 4
+    add = 3 * 4 * 32 * 4
+    assert traces["hand_bytes"] == mm + add
+
+
+def test_peak_estimate_is_the_real_steps(traces):
+    """The estimate runs MemTracker on the step's meta DTensors; on the
+    CPU it gives what MemTracker gives on the same step of real tensors
+    (under ``FakeTensorMode`` it counted DTensor's local ops short)."""
+    assert traces["peak_estimate"] == pytest.approx(traces["peak_real"],
+                                                    rel=1e-3)
+
+
+def test_decode_cell_is_memory_bound(traces):
+    """A decode step reads every weight and the cache for one token a
+    sequence: the memory term dominates, and the bound is that term."""
+    rf = traces["smoke_decode"]
+    assert rf["dominant"] == "memory"
+    assert rf["memory_s"] > max(rf["compute_s"], rf["collective_s"])
+    useful = rf["model_flops_global"] / (rf["chips"] * hw.PEAK_FLOPS_BF16)
+    assert rf["roofline_fraction"] == pytest.approx(useful / rf["memory_s"])
 
 
 def test_local_blocks_equal_jax_devices_indices_map():

@@ -6,7 +6,9 @@ manager, a corrupt trace, a regressed copy of a trace, and the committed
 ``benchmarks/baselines/BENCH_*.json`` artifacts with
 ``--floors benchmarks/baselines/FLOORS.json`` (read only; perturbed copies
 go to a temporary directory). Also: every public name of ``repro.core``,
-``repro.obs`` and ``repro.obs.cli`` has a port counterpart.
+``repro.obs``, ``repro.obs.cli``, ``repro.comm``, ``repro.launch`` (mesh,
+train), ``repro.analysis.hlo`` and ``repro.distributed`` (checkpoint,
+compression, fault, sharding) has a port counterpart.
 """
 import json
 import os
@@ -21,15 +23,23 @@ import pytest
 import repro.analysis.hlo
 import repro.comm
 import repro.core
+import repro.distributed.checkpoint
+import repro.distributed.compression
+import repro.distributed.fault
 import repro.distributed.sharding
 import repro.launch.mesh
+import repro.launch.train
 import repro.obs
 import repro.obs.cli as ref_cli
 import repro_torch.analysis.collectives
 import repro_torch.comm
 import repro_torch.core
+import repro_torch.distributed.checkpoint
+import repro_torch.distributed.compression
+import repro_torch.distributed.fault
 import repro_torch.distributed.sharding
 import repro_torch.launch.mesh
+import repro_torch.launch.train
 import repro_torch.obs
 import repro_torch.obs.cli as port_cli
 from repro_torch.obs import Tracer
@@ -209,8 +219,13 @@ RENAMED = {"analyze_hlo": "analyze_step"}
     (repro.distributed.sharding, repro_torch.distributed.sharding),
     (repro.launch.mesh, repro_torch.launch.mesh),
     (repro.analysis.hlo, repro_torch.analysis.collectives),
+    (repro.distributed.checkpoint, repro_torch.distributed.checkpoint),
+    (repro.distributed.compression, repro_torch.distributed.compression),
+    (repro.distributed.fault, repro_torch.distributed.fault),
+    (repro.launch.train, repro_torch.launch.train),
 ], ids=["core", "obs", "obs.cli", "comm", "distributed.sharding",
-        "launch.mesh", "analysis.hlo"])
+        "launch.mesh", "analysis.hlo", "distributed.checkpoint",
+        "distributed.compression", "distributed.fault", "launch.train"])
 def test_every_reference_name_has_a_port_counterpart(ref_mod, port_mod):
     missing = [n for n in _public(ref_mod)
                if not hasattr(port_mod, RENAMED.get(n, n))]

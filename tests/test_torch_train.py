@@ -338,18 +338,6 @@ def test_resume_is_exact(tmp_path):
         [h["loss"] for h in whole.history[4:]]
 
 
-def test_train_loop_refuses_what_waits_for_distributed():
-    """``mesh=`` trains (``tests/test_torch_train_sharded.py``); a sharded
-    run's checkpoints and the int8 cross-pod compression wait for item 11b
-    and raise before anything runs or is written."""
-    _, cfg = _tinyllama()
-    for kw in (dict(mesh=object(), ckpt_dir="never-written"),
-               dict(compress_pods=True)):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            port_launch.train_loop(cfg, steps=1, global_batch=2, seq_len=8,
-                                   device="cpu", **kw)
-
-
 def test_main_cli(capsys):
     port_launch.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "3",
                       "--global-batch", "2", "--seq-len", "16", "--device",

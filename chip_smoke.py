@@ -241,6 +241,24 @@ non-zero without printing a result):
      to an uninterrupted run's on the batches the resumed run took (1e-6
      relative), the flushed program through the referee with no circuit
      on core 2 after the fault, then ``grow()`` bringing core 2 back.
+ 18. the port's last modules (budget ``EXAMPLE_BUDGET_S``): (a) the port's
+     linter (``repro_torch.analysis.lint``) over the port's tree
+     (``LINT_TREE``) on the card's host, which must be clean: files,
+     findings and suppressed, the ``@effects`` declarations (15), the
+     effects histogram and the four CUDA sources read; (b) the seven
+     ``examples/torch_*.py``, each in a process of its own
+     (``chip_smoke.py --phase18b SCRIPT ARGS``, which runs the script and
+     then prints the kernels' launches it made), all started together on
+     CUDA, plus ``torch_quickstart.py --device cpu``: every one exits 0 and
+     its summary line is checked -- quickstart's part 1 (weighted CCT,
+     makespan, each baseline's ratio) equal to the CPU run's and its loss
+     falling; serve_fabric, fault_recovery and observe_fabric's programs
+     through the referee, every byte of demand in them exactly once and
+     every coflow finalized; plan_circuits' coflows over 4 blocks and their
+     inter-block MB; serve_batched's tokens; train_e2e at full width (~100M
+     parameters) for ``EXAMPLE_E2E_STEPS`` steps with its loss falling and
+     its checkpoints at steps 50 and 100 on disk (under ``chiprun_out/``,
+     deleted after).
 
 It then prints the kernel table as one JSON line and, last, the
 ``{"ok": true, "device": ...}`` line. It needs one card and no network;
@@ -357,6 +375,13 @@ MID_STEPS, MID_RESUME, TRAIN_BUDGET_S = 24, 30, 150.0
 #: agreement with 15(a)'s measured peak.
 ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_LOSS_AT = 12, 4, 6
 ELASTIC_BUDGET_S = 150.0
+#: Phase 18: its budget, and train_e2e's steps at full width (the first cut
+#: if the phase runs over; two checkpoints at 50 and 100).
+EXAMPLE_BUDGET_S, EXAMPLE_E2E_STEPS = 120.0, 100
+#: The port's tree, which its linter must find clean (globs from the root).
+LINT_TREE = ("src/repro_torch", "chip_smoke.py", "scripts/chain_ladder.py",
+             "scripts/chip_*.py", "tests/test_torch_*.py",
+             "examples/torch_*.py")
 
 
 def log(msg: str) -> None:
@@ -456,6 +481,8 @@ def main() -> int:
         return dryrun_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--phase17a"]:  # the peak estimate's own process
         return peak_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--phase18b"]:  # one example's own process
+        return example_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "drives the port on a GPU and has no CPU mode", file=sys.stderr)
@@ -765,10 +792,13 @@ def main() -> int:
     log(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     elastic_phases(torch, dev, train_ref)
     log(f"[17] phases 1-17 took {time.perf_counter() - t_start:.1f} s")
-    for row in fa_rows:  # phase 8's launches, phase 14's and phase 15's
+    example_launches = example_phases(torch)
+    log(f"[18] phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    for row in fa_rows:  # phase 8's launches, 14's, 15's and 18's
         kernel = "sm90_bf16" if row["name"] == "flash_attention" \
             else "simt_fp32"
-        row["launches"] += family_launches[kernel] + train_launches[kernel]
+        row["launches"] += family_launches[kernel] + train_launches[kernel] \
+            + example_launches[kernel]
         row["max_abs_err"] = FA_MAX_ERR[kernel]  # over phases 7, 14, 15
 
     assign_row = {"route": "cuda",
@@ -781,13 +811,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
          "launches": main_launches["chain_sm90"]
          + online_launches["chain_sm90"] + stream_launches["chain_sm90"]
-         + oracle_launches["chain_sm90"] + comm_launches["chain_sm90"],
+         + oracle_launches["chain_sm90"] + comm_launches["chain_sm90"]
+         + example_launches["chain_sm90"],
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
         {"name": "coflow_assign_warp",
          "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
          "launches": main_launches["warp"] + online_launches["warp"]
          + stream_launches["warp"] + oracle_launches["warp"]
-         + comm_launches["warp"],
+         + comm_launches["warp"] + example_launches["warp"],
          "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
         *fa_rows, *family_rows]}))
     log(smi)
@@ -2141,6 +2172,9 @@ def serve_phases(torch, dev, built):
         "ptxas' lines) and kv tile rows: " + ", ".join(
             f"{smem(dh):,} B and {block_k(dh)} rows at Dh={dh}"
             for dh in fa.HEAD_DIMS))
+    if any(block_k(dh) != fa.TILES["sm90_bf16"][dh][1] for dh in fa.HEAD_DIMS):
+        raise AssertionError("the built kernel's kv tile rows differ from "
+                             "kernels/flash_attention.py's TILES")
 
     # ---- 7. kernel vs plain version on the card ------------------------
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -2894,6 +2928,155 @@ def elastic_phases(torch, dev, train_ref: dict) -> None:
     log(f"[17] phase 17 took {t17:.1f} s (budget {ELASTIC_BUDGET_S:.0f} s)")
     if t17 > ELASTIC_BUDGET_S:
         log("[17] over the budget: 17b's uninterrupted run is the first cut")
+
+
+def example_child(script: str, *args: str) -> int:
+    """Phase 18(b)'s child: ``examples/<script>`` run as ``__main__`` with
+    ``args``, then one line of the kernels' launches it made and its
+    seconds."""
+    import runpy
+
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.kernels import flash_attention as fa
+
+    path = ROOT / "examples" / script
+    sys.path.insert(0, str(path.parent))  # its sibling imports
+    sys.argv = [str(path), *args]
+    t0 = time.perf_counter()
+    runpy.run_path(str(path), run_name="__main__")
+    print(json.dumps({"launches": {**ca.launches_by_kernel,
+                                   **fa.launches_by_kernel},
+                      "wall_s": time.perf_counter() - t0}))
+    return 0
+
+
+def example_phases(torch) -> dict:
+    """Phase 18: the port's linter over its tree, then the seven examples
+    on the card, each in a process of its own, all at once. Returns the
+    kernels' launches the examples made, by kernel."""
+    import gc
+    import shutil
+
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.distributed.checkpoint import latest_step
+    from repro_torch.kernels import coflow_assign as ca
+    from repro_torch.kernels import flash_attention as fa
+
+    t18 = time.perf_counter()
+    # ---- 18a. the linter ---------------------------------------------
+    paths = sorted({p for pattern in LINT_TREE for p in ROOT.glob(pattern)})
+    report = lint_paths(paths, root=ROOT)
+    t18a = time.perf_counter() - t18
+    proto = report.protocol
+    log(f"[18a] reprolint over the port's tree ({', '.join(LINT_TREE)}): "
+        f"{report.files} files, {len(report.findings)} findings, "
+        f"{len(report.suppressed)} suppressed "
+        f"({sorted({f.rule for f in report.suppressed})}); {proto['declared']} "
+        f"functions declared of {proto['functions']} ({proto['edges']} "
+        f"call edges); effects {proto['effects']}; CUDA sources read: "
+        f"{', '.join(report.cuda_files)}; {t18a:.2f} s")
+    if not report.ok:
+        raise AssertionError("18a: the port's tree does not lint clean:\n"
+                             + "\n".join(f.render() for f in report.findings))
+    if proto["declared"] != 15 or len(report.cuda_files) != 4:
+        raise AssertionError(f"18a: {proto['declared']} declarations (want "
+                             f"15), {len(report.cuda_files)} CUDA sources "
+                             f"(want 4)")
+
+    # ---- 18b. the examples, a process each, all at once --------------
+    gc.collect()
+    torch.cuda.empty_cache()  # the children's memory
+    tmp = ROOT / "chiprun_out" / "phase18"  # deleted after
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    runs = {
+        "quickstart": ("torch_quickstart.py",),
+        "quickstart (cpu)": ("torch_quickstart.py", "--device", "cpu"),
+        "serve_fabric": ("torch_serve_fabric.py",),
+        "fault_recovery": ("torch_fault_recovery.py",),
+        "observe_fabric": ("torch_observe_fabric.py", str(tmp / "obs")),
+        "plan_circuits": ("torch_plan_circuits.py",),
+        "serve_batched": ("torch_serve_batched.py",),
+        "train_e2e": ("torch_train_e2e.py", "--steps",
+                      str(EXAMPLE_E2E_STEPS), "--ckpt-dir",
+                      str(tmp / "e2e_ckpt")),
+    }
+    # one CPU thread each: the card does the work, and the CPU run of
+    # quickstart is small
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase18b", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name, args in runs.items()}
+    summ, launches = {}, dict.fromkeys([*ca.KERNELS, *fa.KERNELS], 0)
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"18b: {name} failed (exit "
+                                     f"{proc.returncode}):\n{err[-3000:]}")
+            lines = out.strip().splitlines()
+            child = json.loads(lines[-1])
+            summ[name] = json.loads(lines[-2])
+            for kernel, n in child["launches"].items():
+                launches[kernel] += n
+            log(f"[18b] {name}: exit 0 in {child['wall_s']:.1f} s, kernel "
+                f"launches {child['launches']}; {len(lines) - 2} lines, "
+                f"then {lines[-2][:200]}")
+        ckpt = latest_step(str(tmp / "e2e_ckpt"))
+        saved = sorted(p.name for p in (tmp / "e2e_ckpt").iterdir())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    q, qc = summ["quickstart"], summ["quickstart (cpu)"]
+    part1 = ("weighted_cct", "makespan", "ratios")
+    if {k: q[k] for k in part1} != {k: qc[k] for k in part1}:
+        raise AssertionError("18b: quickstart's part 1 on the card differs "
+                             "from the CPU run")
+    if not (q["loss_last"] < q["loss_first"]
+            and qc["loss_last"] < qc["loss_first"]):
+        raise AssertionError("18b: quickstart's loss did not fall")
+    for name, m in (("serve_fabric", 80), ("fault_recovery", 80),
+                    ("observe_fabric", 60)):
+        r = summ[name]
+        if not (r["validated"] and r["bytes_conserved"]
+                and r["coflows_finalized"] == m and len(r["ccts"]) == m
+                and all(map(math.isfinite, r["ccts"]))):
+            raise AssertionError(f"18b: {name}: {r}")
+    pc = summ["plan_circuits"]
+    if not (pc["blocks"] == 4 and pc["coflows"] > 0
+            and pc["inter_block_mb"] > 0 and all(
+                math.isfinite(v) and v > 0
+                for v in pc["weighted_cct"].values())):
+        raise AssertionError(f"18b: plan_circuits: {pc}")
+    tokens = np.asarray(summ["serve_batched"]["tokens"])
+    if tokens.shape != (4, 24) or not ((tokens >= 0) & (tokens < 512)).all():
+        raise AssertionError("18b: serve_batched's tokens")
+    e2e = summ["train_e2e"]
+    if not (e2e["steps"] == EXAMPLE_E2E_STEPS
+            and e2e["last10_loss"] < e2e["first10_loss"]
+            and ckpt == EXAMPLE_E2E_STEPS
+            and f"step_{EXAMPLE_E2E_STEPS // 2:08d}" in saved):
+        raise AssertionError(f"18b: train_e2e: {e2e}, checkpoints {saved}")
+    log(f"[18b] quickstart's part 1 on the card == the CPU run: weighted CCT "
+        f"{q['weighted_cct']!r}, makespan {q['makespan']!r}, ratios "
+        f"{q['ratios']}; loss {q['loss_first']!r} -> {q['loss_last']!r}; "
+        f"the three streams' programs valid, bytes conserved; plan_circuits "
+        f"{pc['coflows']} coflows, {pc['inter_block_mb']:.1f} MB between "
+        f"blocks; train_e2e {e2e['params_m']}M parameters, {e2e['steps']} "
+        f"steps, mean loss of the first 10 {e2e['first10_loss']!r}, last 10 "
+        f"{e2e['last10_loss']!r}, checkpoints {saved}")
+    t18 = time.perf_counter() - t18
+    log(f"[18] phase 18 took {t18:.1f} s (18a {t18a:.1f}; budget "
+        f"{EXAMPLE_BUDGET_S:.0f} s); the examples' kernel launches "
+        f"{launches}")
+    if t18 > EXAMPLE_BUDGET_S:
+        log("[18] over the budget: train_e2e's steps are the first cut")
+    return launches
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..core import ALGORITHMS, Schedule, global_lb, run, validate
 from ..core.coflow import Coflow, instance_from_coflows
+from ..core.effects import effects
 from ..core.scheduler import tail_quantile
 
 __all__ = ["OCSFabric", "PlanReport", "plan_circuits", "plan_circuits_service"]
@@ -93,6 +94,8 @@ def plan_circuits(
     return out
 
 
+@effects("cache-read", "cache-write", "cache-rekey",
+         "rng-consume", "trace-emit")
 def plan_circuits_service(
     coflows: list[Coflow],
     fabric: OCSFabric = OCSFabric(),

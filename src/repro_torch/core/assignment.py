@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .coflow import Flow, Instance, _flows_of, extract_flows
+from .effects import effects
 from .lower_bounds import CoreState
 
 __all__ = ["AssignedFlow", "Assignment", "assign_tau_aware",
@@ -232,6 +233,7 @@ class FlatAssignState:
                               float(self.rates[k]))
             self._rho[k] = 0.0
 
+    @effects("rng-consume")
     def assign(self, fi: torch.Tensor, fj: torch.Tensor, sizes: torch.Tensor,
                *, up: torch.Tensor | np.ndarray | None = None) -> torch.Tensor:
         """Assign one chunk of flows (in global arrival order), mutating the

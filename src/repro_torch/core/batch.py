@@ -19,11 +19,12 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import multiprocessing as mp
-import time
 from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.obs.clock import now
 
 from .coflow import Instance, OnlineInstance, instance_from_arrays
 from .engine import (BACKENDS, cross_check, cross_check_online, run_fast,
@@ -118,7 +119,7 @@ def row_from_ccts(idx: int, alg: str, sched: str, seed: int,
 def _synced_wall(dev: torch.device, t0: float) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return time.perf_counter() - t0
+    return now() - t0
 
 
 def _run_one(idx: int, inst: Instance, rel: torch.Tensor | None, alg: str,
@@ -126,14 +127,14 @@ def _run_one(idx: int, inst: Instance, rel: torch.Tensor | None, alg: str,
              materialize: str) -> SweepRow:
     """One grid point -> ``SweepRow``."""
     if materialize == "metrics":
-        t0 = time.perf_counter()
+        t0 = now()
         ccts, n_flows = run_fast_metrics(inst, alg, seed=seed,
                                          scheduling=sched, backend=backend,
                                          releases=rel)
         wall = _synced_wall(inst.device, t0)
         return row_from_ccts(idx, alg, sched, seed, inst.weights, ccts,
                              n_flows, wall)
-    t0 = time.perf_counter()
+    t0 = now()
     if rel is None:
         s = run_fast(inst, alg, seed=seed, scheduling=sched, backend=backend)
     else:

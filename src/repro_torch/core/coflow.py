@@ -22,12 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
+from typing import Annotated, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+from .arrays import F8, I8
 
 __all__ = [
     "Coflow",
@@ -182,7 +184,7 @@ class Instance:
         d.setflags(write=False)
         return d
 
-    def host_demand(self, m: int) -> np.ndarray:
+    def host_demand(self, m: int) -> Annotated[F8, "N N"]:
         """Coflow ``m``'s ``(N, N)`` float64 demand on the host, read-only:
         the reference's ``inst.coflows[m].demand``. The whole stack crosses
         to the host once, on the first call, and is kept."""
@@ -215,10 +217,10 @@ class OnlineInstance:
 
 
 def instance_from_arrays(
-    demand: np.ndarray,   # (M, N, N)
-    weights: np.ndarray,  # (M,)
-    cids: np.ndarray,     # (M,)
-    rates: np.ndarray,    # (K,)
+    demand: Annotated[F8, "M N N"],
+    weights: Annotated[F8, "M"],
+    cids: Annotated[I8, "M"],
+    rates: Annotated[F8, "K"],
     delta: float,
     *,
     device: str | torch.device | None = None,
@@ -273,12 +275,12 @@ def instance_from_coflows(
 
 
 def online_instance_from_arrays(
-    demand: np.ndarray,    # (M, N, N)
-    weights: np.ndarray,   # (M,)
-    cids: np.ndarray,      # (M,)
-    rates: np.ndarray,     # (K,)
+    demand: Annotated[F8, "M N N"],
+    weights: Annotated[F8, "M"],
+    cids: Annotated[I8, "M"],
+    rates: Annotated[F8, "K"],
     delta: float,
-    releases: np.ndarray,  # (M,)
+    releases: Annotated[F8, "M"],
     *,
     device: str | torch.device | None = None,
 ) -> OnlineInstance:

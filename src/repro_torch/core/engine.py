@@ -288,10 +288,10 @@ def _event_loop(
                 # Only cores with a completion (or a release) at t can
                 # start flows now.
                 act = np.zeros(n_res // n_ports, dtype=bool)
-                act[np.nonzero(free_in == t)[0] // n_ports] = True
-                act[np.nonzero(free_out == t)[0] // n_ports] = True
+                act[np.nonzero(free_in == t)[0] // n_ports] = True  # reprolint: disable=float-eq -- exact-float convention: t was copied verbatim from free_in (circuit_scheduler docstring)
+                act[np.nonzero(free_out == t)[0] // n_ports] = True  # reprolint: disable=float-eq -- exact-float convention: t was copied verbatim from free_out
                 if release is not None:
-                    act[core[pending[release[pending] == t]]] = True
+                    act[core[pending[release[pending] == t]]] = True  # reprolint: disable=float-eq -- exact-float convention: event times are copied release values, never arithmetic
                 pend = pending[act[core[pending]]]
             if release is not None and pend.size:
                 pend = pend[release[pend] <= t]
@@ -341,8 +341,8 @@ def _event_loop(
         if not remaining:
             break
         t = _pop_next_event(events, t)
-        pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]
-        pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]
+        pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_in
+        pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_out
         if release is not None:
             pool.append(rel_map.get(t, np.empty(0, np.int64)))
         cand = np.unique(np.concatenate(pool)) if pool else np.empty(0, np.int64)

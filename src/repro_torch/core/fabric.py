@@ -42,6 +42,7 @@ from repro_torch.obs.trace import NULL_TRACER, Tracer
 from .arrays import F8, I8
 from .assignment import FlatAssignState, _host_f64
 from .coflow import Coflow, OnlineInstance, extract_flows, instance_from_coflows
+from .effects import effects
 from .engine import (
     _event_loop,
     _reserving_times,
@@ -537,6 +538,7 @@ class FabricState:
         self.free_in = free_in
         self.free_out = free_out
 
+    @effects("commit-mutate", "watermark")
     def _gc_commits(self, t_now: float) -> None:
         """Watermark GC over the retained commits (satellite of the fault
         model): a fault discovered late may be timestamped no earlier than
@@ -561,7 +563,7 @@ class FabricState:
             if wm > self._gc_floor:
                 self._gc_floor = wm
         c = self._commit
-        if c is None or not c["gid"].size or self._gc_floor == -np.inf:  # -inf is an exact sentinel
+        if c is None or not c["gid"].size or self._gc_floor == -np.inf:  # reprolint: disable=float-eq -- -inf is an exact sentinel (never produced by arithmetic)
             return
         drop = c["t_comp"] <= self._gc_floor
         n_drop = int(drop.sum())
@@ -600,6 +602,8 @@ class FabricState:
             for name, _dt in _PEND_FIELDS
         }
 
+    @effects("commit-mutate", "fingerprint-mutate", "watermark",
+             "rng-consume", "trace-emit")
     def apply_fault(self, event: FaultEvent) -> FaultApplication:
         """Apply one topology-churn event (see ``core.fault``) right now.
 
@@ -623,6 +627,8 @@ class FabricState:
                        invalidated=self.tent_invalidated - inv0)
             return app
 
+    @effects("commit-mutate", "fingerprint-mutate", "watermark",
+             "rng-consume")
     def _apply_fault(self, event: FaultEvent) -> FaultApplication:
         if not isinstance(event, FAULT_EVENTS):
             raise TypeError(
@@ -883,6 +889,8 @@ class FabricState:
             "intra": intra,
         }
 
+    @effects("commit-mutate", "fingerprint-mutate", "watermark",
+             "rng-consume", "trace-emit")
     def step(self, coflows: Sequence[Coflow],
              releases: Annotated[F8, "B"], t_now: float) -> TickCommit:
         """One service tick: admit ``coflows`` (released in

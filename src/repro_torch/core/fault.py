@@ -75,6 +75,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Union
 
+from .effects import effects
+
 __all__ = [
     "CoreDown",
     "CoreUp",
@@ -203,6 +205,7 @@ class FaultInjector:
         """Events not yet consumed, in firing order."""
         return tuple(self._events[self._next:])
 
+    @effects()
     def pop_due(self, t_now: float) -> tuple:
         """Consume and return every pending event with ``t <= t_now``."""
         lo = self._next

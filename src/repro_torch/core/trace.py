@@ -193,7 +193,7 @@ def sample_online_instance(
         return OnlineInstance(inst=inst, releases=np.zeros(0))
     arr = np.array([trace[int(t)].arrival_ms for t in pick])
     lo, hi = float(arr.min()), float(arr.max())
-    rel = (np.zeros(M) if span == 0 or hi == lo
+    rel = (np.zeros(M) if span == 0 or hi == lo  # reprolint: disable=float-eq -- degenerate-span guard: exact equality is the division-by-zero condition
            else (arr - lo) / (hi - lo) * span)
     return OnlineInstance(inst=inst, releases=rel)
 

@@ -37,11 +37,16 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
-           "launches_by_kernel", "HEAD_DIMS", "KERNELS", "kernel_for",
+           "launches_by_kernel", "HEAD_DIMS", "TILES", "KERNELS", "kernel_for",
            "check_tma"]
 
 #: Head dims the kernels are compiled for.
 HEAD_DIMS = (64, 128, 256)
+#: Rows of each kernel's (q, kv) tiles at each head dim, as its source fixes
+#: them (``kBlockQ``, and ``block_k(Dh)`` or ``kBlockK``); reprolint's
+#: blockspec-shape rule holds the two equal.
+TILES = {"sm90_bf16": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
+         "simt_fp32": {64: (64, 64), 128: (64, 64), 256: (64, 64)}}
 #: Kernel name -> (csrc source, dtype it takes).
 KERNELS = {"sm90_bf16": ("flash_attention_sm90", torch.bfloat16),
            "simt_fp32": ("flash_attention", torch.float32)}

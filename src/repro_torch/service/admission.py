@@ -56,6 +56,7 @@ from collections import deque
 import numpy as np
 
 from repro_torch.core.coflow import Coflow
+from repro_torch.core.effects import effects
 from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = ["ArrivalRequest", "AdmissionPolicy", "BackpressureError",
@@ -288,6 +289,7 @@ class AdmissionQueue:
                 self._dropped.inc()
         return deque(kept)
 
+    @effects()
     def drain(self, t_now: float, t_floor: float,
               flow_budget: int | None = None) -> list[ArrivalRequest]:
         """Dequeue every request released at or before ``t_now`` that fits

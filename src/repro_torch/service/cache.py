@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coflow import Instance
+from repro_torch.core.effects import effects
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer, current_tracer
 
@@ -102,6 +103,7 @@ class ProgramCache:
     def __len__(self) -> int:
         return len(self._store)
 
+    @effects("cache-read", "trace-emit")
     def get(self, key: str) -> object | None:
         """Program for ``key``, or None (counts a hit/miss either way)."""
         try:
@@ -117,12 +119,14 @@ class ProgramCache:
             self._tracer.event("cache/hit", key=key[:16])
         return val
 
+    @effects("cache-write")
     def put(self, key: str, program: object) -> None:
         self._store[key] = program
         self._store.move_to_end(key)
         while len(self._store) > self.capacity:
             self._store.popitem(last=False)
 
+    @effects("cache-purge", "trace-emit")
     def invalidate(self, pred: Callable[[object], bool]) -> int:
         """Drop every entry whose value satisfies ``pred``; returns the
         count. The fault path uses this to purge programs that matched

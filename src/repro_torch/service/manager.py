@@ -48,6 +48,7 @@ from repro_torch.core.coflow import (
     OnlineInstance,
     instance_from_coflows,
 )
+from repro_torch.core.effects import effects
 from repro_torch.core.engine import run_fast, run_fast_online
 from repro_torch.core.fabric import INCREMENTAL_SCHEDULINGS, FabricState
 from repro_torch.core.fault import CoreDown, FaultApplication, FaultEvent
@@ -244,6 +245,8 @@ class FabricManager:
             submitted_s=now(),
             score=score, n_flows=coflow.num_flows))
 
+    @effects("fingerprint-mutate", "watermark", "cache-purge",
+             "rng-consume", "trace-emit")
     def tick(self, t_now: float) -> TickReport:
         """One service tick at stream time ``t_now``: drain the admission
         queue (under the admission policy's flow budget), schedule pending
@@ -363,6 +366,7 @@ class FabricManager:
         return self._tick(np.inf, capped=False)
 
     # -- fault plane --------------------------------------------------------
+    @effects("cache-purge", "trace-emit")
     def _register_fault(self, app: FaultApplication) -> FaultReport:
         """Turn one ``FaultApplication`` into its corrective actions: emit
         teardown events for every aborted circuit, retract retracted final
@@ -386,6 +390,8 @@ class FabricManager:
         self.fault_reports.append(report)
         return report
 
+    @effects("fingerprint-mutate", "watermark", "cache-purge",
+             "rng-consume", "trace-emit")
     def report_fault(self, event: FaultEvent) -> FaultReport:
         """Apply one topology-churn event (``core.fault``) right now.
 
@@ -416,6 +422,8 @@ class FabricManager:
         return self.state.ccts()
 
     # -- one-shot plane ----------------------------------------------------
+    @effects("cache-read", "cache-write", "cache-rekey",
+             "rng-consume", "trace-emit")
     def schedule_instance(
         self,
         inst: Instance | OnlineInstance,

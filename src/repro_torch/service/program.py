@@ -227,7 +227,7 @@ def merge_programs(programs: Sequence[CircuitProgram],
         return CircuitProgram.empty(rates, delta, N)
     rates_h = torch.as_tensor(rates, dtype=torch.float64).cpu()
     for p in programs:
-        if (p.N != int(N) or p.delta != float(delta)
+        if (p.N != int(N) or p.delta != float(delta)  # reprolint: disable=float-eq -- fabric-identity check: programs merge only for bit-identical delta (cache keys hash the exact value)
                 or not torch.equal(p.rates.cpu(), rates_h)):
             raise ValueError("cannot merge programs for different fabrics")
 

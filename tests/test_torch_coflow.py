@@ -178,8 +178,16 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.distributed.compression, "
             "repro_torch.distributed.sharding, repro_torch.launch.train, "
             "repro_torch.launch.dryrun, repro_torch.comm, "
-            "repro_torch.analysis.collectives\n"
+            "repro_torch.analysis.collectives, repro_torch.core.effects, "
+            "repro_torch.analysis.lint, repro_torch.analysis.lint.__main__\n"
             "from repro_torch.distributed.fault import ElasticTrainer\n"
+            "import importlib.util, pathlib\n"
+            f"examples = pathlib.Path({str(SRC.parent / 'examples')!r})\n"
+            "sys.path.insert(0, str(examples))\n"
+            "for p in sorted(examples.glob('torch_*.py')):\n"
+            "    spec = importlib.util.spec_from_file_location(p.stem, p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

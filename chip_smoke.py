@@ -12,31 +12,39 @@ non-zero without printing a result):
      limit from ``nvidia-smi``;
   2. build: ``nvcc`` compiles the two assignment kernels for sm_90a,
      ``kernels/csrc/coflow_assign_sm90.cu`` (the chain kernel, K <= 8) and
-     ``kernels/csrc/coflow_assign.cu`` (the warp kernel, K <= 32), one nvcc
-     per source, all four sources of the script started together; their
-     ptxas lines (registers, shared memory, spills);
+     ``kernels/csrc/coflow_assign_lanes_sm90.cu`` (the lanes kernel,
+     9 <= K <= 256), one nvcc per source, all four sources of the script
+     started together; their ptxas lines (registers, shared memory,
+     spills) and the lanes kernel's layout at K=16, N=150 (all shared),
+     K=32, N=512 (state and bitmap global) and K=64, N=150 (bitmap global);
   3. the assignment kernels against their plain PyTorch version on the
      card, bit for bit: the chain kernel on small and edge shapes (F=0,
      F=5, K=8 at N=150, K=8 at N=512 where the nonzero bitmap lives in
      global memory), on every hazard stream of ``kernels/hazards.py``
      (ports repeated at distances 1..4, runs of one port, exact ties, zero
      sizes) for K=1..8 at N=8, 150 and 512, and on the first 4,096
-     pi-ordered flows of the 526-coflow trace instance; the warp kernel on
-     those 4,096 flows and on hazard streams at K=9 and 32;
+     pi-ordered flows of the 526-coflow trace instance; the lanes kernel on
+     every hazard stream at K=9, 16, 32, 33 and 64 for N=8, 150 and 512,
+     and on those 4,096 flows at K=16;
   4. the main path: ``sample_instance(N=150, M=200)`` of the FB-2010-style
      trace through ``run_fast(backend="kernel")`` (the kernel is opt-in: the
      default backend is the fp64 host one, as in the reference) and
      ``validate``, with weighted and tail CCT,
      each stage's time, each assignment kernel's launches in that run (one
-     of the chain kernel, none of the warp kernel), a check of every CCT
+     of the chain kernel, none of the lanes kernel), a check of every CCT
      against the Lemma 1 lower bound, a small instance whose GPU run must
-     equal its CPU run, and the chain kernel against its plain version on
-     the main path's own 191,551 flows;
+     equal its CPU run, the chain kernel against its plain version on
+     the main path's own 191,551 flows and the lanes kernel (named) on
+     them; then (4b) ``run_fast(backend="kernel")`` at K=16 (the rates
+     repeated, so equal-rate cores tie exactly) on M=48 coflows: one
+     launch of the lanes kernel, none of the chain kernel, ``validate``,
+     and core, t_establish, t_complete and CCTs equal to the CPU run;
   5. the whole trace (M=526, 443,943 flows): the chain kernel against the
-     warp kernel, choice for choice; then both kernels timed in turns
-     (warp, chain, chain, warp) at F=191,551 and F=443,943 with CUDA
-     events, the SM clock read with ``nvidia-smi`` beside each timing, ns
-     and cycles per flow, the roofline bound and the chain floor;
+     lanes kernel (named at K=3), choice for choice; then at F=191,551 and
+     F=443,943 with CUDA events, the SM clock read with ``nvidia-smi``
+     beside each timing: the chain and the lanes kernel in turns at K=3,
+     the lanes kernel at K=16 and 32; ns and cycles per flow, the roofline
+     bound and both kernels' chain floors;
   6. build: ``nvcc`` compiles the two flash-attention kernels,
      ``kernels/csrc/flash_attention_sm90.cu`` (bf16: TMA + wgmma) and
      ``kernels/csrc/flash_attention.cu`` (fp32: CUDA cores), started
@@ -68,11 +76,13 @@ non-zero without printing a result):
   9. the online path at full width: ``sample_online_instance`` of the same
      trace (N=150, M=200: phase 4's coflows, 191,551 flows, released over
      phase 4's makespan) through ``run_fast_online(backend="kernel")`` (one
-     launch of the chain kernel on the arrival-ordered flows, none of the warp kernel) and
+     launch of the chain kernel on the arrival-ordered flows, none of the
+     lanes kernel) and
      ``validate(releases=)``, every CCT against release + delta + rho/R,
      weighted and tail CCT and the price of arrival (online over offline
-     weighted CCT), each stage's time, the chain kernel against the warp
-     kernel on every online flow and against its plain version on the first
+     weighted CCT), each stage's time, the chain kernel against the lanes
+     kernel (named at K=3) on every online flow and against its plain
+     version on the first
      4,096, and the kernel's agreement with the fp64 host backend's choices,
      online and offline, and the weighted-CCT drift it causes, beside the
      reference's stated precision contract (>= 97%, < 2%);
@@ -223,9 +233,10 @@ non-zero without printing a result):
      steps (the save's snapshot and write seconds), ``restore_checkpoint``
      onto the run's shardings (its seconds; every leaf a DTensor with the
      planned placements and the saved bytes), a fresh ``train_loop`` that
-     resumes to step 4 and an uninterrupted 4-step run: the resumed losses
-     within 1e-6 relative of the uninterrupted run's, the first two within
-     1e-6 of 15(a)'s; (c) 2 steps of ``build_compressed_train_step`` on a
+     resumes to step 4: the resumed losses within 1e-6 relative of 15(a)'s
+     steps 3-4 (the uninterrupted run of the same config, seed and
+     batches; a 4-step run of 17b's own was the script's first cut), the
+     first two within 1e-6 of 15(a)'s; (c) 2 steps of ``build_compressed_train_step`` on a
      (1, 1, 1) ("pod", "data", "model") mesh from 15(a)'s initial weights
      against (b)'s 2 plain steps (the reference test's bounds, |dloss| <
      0.05 and max |dparam| < 0.05; step 1's loss within 1e-6 relative,
@@ -280,6 +291,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_SCRIPT = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -301,6 +313,25 @@ CHAIN_CYCLES_PER_OP = 5
 
 def chain_dependent_ops(k_cores: int) -> int:
     return 2 * max(1, (k_cores - 1).bit_length()) + 3
+
+
+def lanes_dependent_ops(k_cores: int) -> int:
+    """The lanes kernel's chain floor in dependent instructions (derived
+    from its source, not measured): the max that forms a candidate, 2 per
+    level of the lane's argmin tree over its C = ceil(K/32) cores, then
+    redux.sync, the compare, the ballot, the mask of the lanes up to this
+    one, the compare that says this lane won and the winner's bound select
+    (the next max is the first of the next flow's)."""
+    c = -(-k_cores // 32)
+    return 1 + 2 * (c - 1).bit_length() + 6
+
+
+#: The lanes kernel's main path: run_fast at K=16 (RATES repeated, so
+#: equal-rate cores tie exactly) on M_LANES coflows of the trace at N=150;
+#: its hazard streams' K (one core a lane, then two); its timed K.
+LANES_K, M_LANES = 16, 48
+LANES_HAZARD_K = (9, 16, 32, 33, 64)
+LANES_TIMED_K = (16, 32)
 
 TRACE_COFLOWS, TRACE_SEED = 526, 2026
 N_PORTS, M_MAIN, RATES, DELTA = 150, 200, (10.0, 20.0, 30.0), 8.0
@@ -380,8 +411,8 @@ ELASTIC_BUDGET_S = 150.0
 EXAMPLE_BUDGET_S, EXAMPLE_E2E_STEPS = 120.0, 100
 #: The port's tree, which its linter must find clean (globs from the root).
 LINT_TREE = ("src/repro_torch", "chip_smoke.py", "scripts/chain_ladder.py",
-             "scripts/chip_*.py", "tests/test_torch_*.py",
-             "examples/torch_*.py")
+             "scripts/lanes_ladder.py", "scripts/chip_*.py",
+             "tests/test_torch_*.py", "examples/torch_*.py")
 
 
 def log(msg: str) -> None:
@@ -512,7 +543,7 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(f"[1] nvidia-smi: {smi}")
 
-    # ---- 2. build (both kernels start now, one nvcc each) ----------------
+    # ---- 2. build (every kernel starts now, one nvcc each) --------------
     builds = {}
 
     def build(name):
@@ -524,7 +555,7 @@ def main() -> int:
             builds[name] = exc
 
     threads = {n: threading.Thread(target=build, args=(n,))
-               for n in ("coflow_assign_sm90", "coflow_assign",
+               for n in ("coflow_assign_sm90", "coflow_assign_lanes_sm90",
                          "flash_attention", "flash_attention_sm90")}
     for t in threads.values():
         t.start()
@@ -535,17 +566,23 @@ def main() -> int:
             raise builds[name]
         return builds[name]
 
-    for name in ("coflow_assign_sm90", "coflow_assign"):
+    for name in ("coflow_assign_sm90", "coflow_assign_lanes_sm90"):
         log(f"[2] built {name}.cu in {built(name):.2f} s "
             f"({' '.join(_build.nvcc_flags(name))})")
         # one line per instance: the chain kernel has one per K and bitmap
-        # place (mangled as ILi<K>ELb<shared>), the warp kernel one per place
+        # place (mangled as ILi<K>ELb<shared>), the lanes kernel one per
+        # cores a lane and place of state and bitmap (ILi<C>ELb<s>ELb<s>)
         instance, spills = "", ""
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
-                k = re.search(r"ILi(\d)E", line)
-                instance = (f"K={k.group(1)}, " if k else "") + "bitmap " + (
-                    "shared" if "Lb1E" in line else "global")
+                m = re.search(r"ILi(\d)ELb([01])E(?:Lb([01])E)?", line)
+                where = {"0": "global", "1": "shared"}
+                if m and m.group(3) is not None:
+                    instance = (f"C={m.group(1)}, state {where[m.group(2)]}, "
+                                f"bitmap {where[m.group(3)]}")
+                elif m:
+                    instance = (f"K={m.group(1)}, bitmap "
+                                f"{where[m.group(2)]}")
             elif "spill" in line:
                 spills = line.strip()
             elif "Used" in line:
@@ -554,8 +591,13 @@ def main() -> int:
     smem_main, _ = ca._chain_smem_layout(len(RATES), N_PORTS)
     log(f"[2] chain kernel dynamic shared memory (not in ptxas' lines) at "
         f"K={len(RATES)}, N={N_PORTS}: {smem_main:,} B")
+    for K, N in ((LANES_K, N_PORTS), (32, 512), (64, N_PORTS)):
+        c, smem, state_g, nz_g = ca._lanes_layout(K, N)
+        log(f"[2] lanes kernel at K={K}, N={N}: C={c} cores a lane, "
+            f"{smem:,} B of shared memory, global state {state_g:,} B, "
+            f"global bitmap {nz_g:,} B")
 
-    max_err = {"chain_sm90": 0, "warp": 0}
+    max_err = dict.fromkeys(ca.KERNELS, 0)
 
     def kernel_vs_plain(label, fi, fj, sz, rates, delta, n_ports, phase=3,
                         kernel=None, quiet=False):
@@ -585,6 +627,11 @@ def main() -> int:
                 torch.as_tensor(np.asarray(sz, np.float32), device=dev),
                 torch.as_tensor(np.asarray(rates, np.float32), device=dev))
 
+    def repeated_rates(K):
+        """The trace's rates repeated to K cores: equal-rate cores tie."""
+        return torch.tensor(np.resize(RATES, K), dtype=torch.float32,
+                            device=dev)
+
     # ---- 3. kernel vs plain version on the card -----------------------
     for F, K, N, delta in CASES:
         rng = np.random.default_rng(F + K)
@@ -610,7 +657,7 @@ def main() -> int:
         fj = ports[rng.integers(0, 48, 4096)]
         sz = rng.exponential(50, 4096)
         rates = np.sort(rng.uniform(5, 30, 8))
-        where = "shared" if ca._smem_layout(8, N)[3] else "global"
+        where = "shared" if ca._chain_smem_layout(8, N)[1] else "global"
         kernel_vs_plain(f"K=8 N={N} (nz bitmap in {where} memory)",
                         *on_card(fi, fj, sz, rates), 8.0, N)
 
@@ -628,11 +675,21 @@ def main() -> int:
         f"at distances 1..4, runs of one port, ties, zero sizes; K=1..8; "
         f"N=8/150/512; 300 flows each): the chain kernel equals the plain "
         f"version on every one ({time.perf_counter() - t_hz:.1f} s)")
-    for K in (9, 32):
-        for stream in ("cell@1", "col@2", "mixed", "ties"):
-            fi, fj, sz, rates, delta = hazard_stream(stream, K, N_PORTS)
-            kernel_vs_plain(f"hazard stream {stream}",
-                            *on_card(fi, fj, sz, rates), delta, N_PORTS)
+    n_streams = 0
+    t_hz = time.perf_counter()
+    for stream in KINDS:
+        for K in LANES_HAZARD_K:
+            for N in (8, 150, 512):
+                fi, fj, sz, rates, delta = hazard_stream(stream, K, N)
+                kernel_vs_plain(f"hazard stream {stream}",
+                                *on_card(fi, fj, sz, rates), delta, N,
+                                quiet=True)
+                n_streams += 1
+    log(f"[3] {n_streams} hazard streams (the {len(KINDS)} kinds; K="
+        f"{'/'.join(map(str, LANES_HAZARD_K))}: one core a lane, then two; "
+        f"N=8/150/512, the state global at N=512 and the bitmap at K=64, "
+        f"N=150): the lanes kernel equals the plain version on every one "
+        f"({time.perf_counter() - t_hz:.1f} s)")
 
     trace = synth_fb_trace(TRACE_COFLOWS, seed=TRACE_SEED)
     inst526, t_inst526 = sync_time(lambda: sample_instance(
@@ -645,8 +702,9 @@ def main() -> int:
     plain_4096_s = kernel_vs_plain(
         "first 4,096 pi-ordered flows of the M=526 trace instance", *first,
         DELTA, N_PORTS)
-    kernel_vs_plain("first 4,096 pi-ordered flows of the M=526 trace "
-                    "instance", *first, DELTA, N_PORTS, kernel="warp")
+    kernel_vs_plain(f"first 4,096 pi-ordered flows of the M=526 trace "
+                    f"instance, K={LANES_K}", *first[:3],
+                    repeated_rates(LANES_K), DELTA, N_PORTS)
 
     # ---- 4. main path -----------------------------------------------------
     inst, t_inst = sync_time(lambda: sample_instance(
@@ -657,9 +715,10 @@ def main() -> int:
     ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
     sched, t_run = sync_time(lambda: run_fast(inst, backend="kernel"))
     main_launches = dict(ca.launches_by_kernel)
-    if main_launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
+    if main_launches != {"chain_sm90": 1, "lanes_sm90": 0} \
+            or ca.launches != 1:
         raise AssertionError(f"run_fast must launch the chain kernel once and "
-                             f"the warp kernel never; counted {main_launches}")
+                             f"the lanes kernel never; counted {main_launches}")
     _, t_val = sync_time(lambda: validate(sched))
     F = sched.n_flows
     ccts = sched.ccts
@@ -709,12 +768,55 @@ def main() -> int:
     fi32, fj32, sz32 = fi.int(), fj.int(), size.float()
     plain_main_s = kernel_vs_plain("main path flows", fi32, fj32, sz32,
                                    inst.rates.float(), DELTA, N_PORTS, phase=4)
-    warp_core = ca.coflow_assign_cuda(fi32, fj32, sz32, inst.rates.float(),
-                                      DELTA, n_ports=N_PORTS, kernel="warp")
-    if not torch.equal(warp_core, core):
-        raise AssertionError("the warp kernel's choices differ on the main path")
-    log("[4] the warp kernel (PRs 11-13's main path) makes the same 191,551 "
-        "choices, so run_fast's weighted, p95 and p99 CCT are those it gave")
+    lanes_core = ca.coflow_assign_cuda(fi32, fj32, sz32, inst.rates.float(),
+                                       DELTA, n_ports=N_PORTS,
+                                       kernel="lanes_sm90")
+    if not torch.equal(lanes_core, core):
+        raise AssertionError("the lanes kernel's choices differ on the main "
+                             "path")
+    log(f"[4] the lanes kernel (named at K={inst.K}) makes the same {F:,} "
+        f"choices as the chain kernel")
+
+    # ---- 4b. the main path at K=16: the lanes kernel ---------------------
+    t4b = time.perf_counter()
+    wide = {d: sample_instance(trace, N=N_PORTS, M=M_LANES,
+                               rates=np.resize(RATES, LANES_K), delta=DELTA,
+                               seed=0, device=d) for d in ("cuda", "cpu")}
+    ca.launches = 0
+    ca.launches_by_kernel = dict.fromkeys(ca.KERNELS, 0)
+    w_gpu, t_wide = sync_time(lambda: run_fast(wide["cuda"], backend="kernel"))
+    lanes_main_launches = dict(ca.launches_by_kernel)
+    if lanes_main_launches != {"chain_sm90": 0, "lanes_sm90": 1} \
+            or ca.launches != 1:
+        raise AssertionError(f"run_fast at K={LANES_K} must launch the lanes "
+                             f"kernel once and the chain kernel never; "
+                             f"counted {lanes_main_launches}")
+    _, t_wval = sync_time(lambda: validate(w_gpu))
+    w_cpu, t_wcpu = sync_time(lambda: run_fast(wide["cpu"], backend="kernel"))
+    for field in ("core", "t_establish", "t_complete", "ccts"):
+        if not torch.equal(getattr(w_gpu, field).cpu(),
+                           getattr(w_cpu, field)):
+            raise AssertionError(f"run_fast at K={LANES_K}: the card's "
+                                 f"{field} differs from the CPU run's")
+    w_ties = int((w_gpu.core % len(RATES) == 0).sum())
+    log(f"[4b] run_fast(backend=\"kernel\") at K={LANES_K} (rates {RATES} "
+        f"repeated: equal-rate cores tie exactly), M={M_LANES}, N={N_PORTS}: "
+        f"{w_gpu.n_flows} flows, launches {lanes_main_launches}, "
+        f"{t_wide:.3f} s; validate passed in {t_wval:.3f} s; core, "
+        f"t_establish, t_complete and CCTs equal the CPU run's ({t_wcpu:.1f} "
+        f"s, the plain version); weighted CCT "
+        f"{w_gpu.total_weighted_cct!r}; {w_ties} flows on a rate-10 core")
+    (_pi16, wflows) = (lambda p: (p, extract_flows(wide["cuda"], p)))(
+        order_coflows(wide["cuda"]))
+    wargs = (wflows[2].int(), wflows[3].int(), wflows[4].float(),
+             repeated_rates(LANES_K))
+    plain_lanes_s = kernel_vs_plain(f"main path flows at K={LANES_K}",
+                                    *wargs, DELTA, N_PORTS, phase="4b")
+    F16 = wargs[0].numel()
+    lanes_step_ms = event_ms(lambda: ca.coflow_assign_cuda(
+        *wargs, DELTA, n_ports=N_PORTS), reps=5)
+    log(f"[4b] the lanes kernel on those {F16:,} flows: {lanes_step_ms:.3f} "
+        f"ms; the step took {time.perf_counter() - t4b:.1f} s")
 
     # ---- 5. the whole trace ---------------------------------------------
     table526, t_table526 = sync_time(lambda: build_flow_table(
@@ -723,18 +825,20 @@ def main() -> int:
         raise AssertionError("a choice is outside [0, K)")
     args526 = (fi526.int(), fj526.int(), sz526.float(), rates32)
     chain526 = ca.coflow_assign_cuda(*args526, DELTA, n_ports=N_PORTS)
-    warp526 = ca.coflow_assign_cuda(*args526, DELTA, n_ports=N_PORTS,
-                                    kernel="warp")
-    n_diff = int((chain526 != warp526).sum())
+    lanes526 = ca.coflow_assign_cuda(*args526, DELTA, n_ports=N_PORTS,
+                                     kernel="lanes_sm90")
+    n_diff = int((chain526 != lanes526).sum())
     log(f"[5] M=526: instance {t_inst526:.2f} s; build_flow_table "
         f"{t_table526:.3f} s for {table526.n_flows} flows, every choice in "
-        f"[0, {inst526.K}); chain kernel vs warp kernel on all "
+        f"[0, {inst526.K}); chain kernel vs lanes kernel on all "
         f"{chain526.numel()} flows: {n_diff} choices differ")
     if n_diff:
-        raise AssertionError("chain kernel != warp kernel on the M=526 trace")
+        raise AssertionError("chain kernel != lanes kernel on the M=526 trace")
 
-    # Both kernels in turns (warp, chain, chain, warp) at both lengths, the
-    # SM clock read beside each timing.
+    # The kernels in turns at both lengths, the SM clock read beside each
+    # timing: at K=3 the chain kernel and the lanes kernel (named), at K=16
+    # and 32 the lanes kernel (scripts/chip_lanes.py times it against an
+    # earlier checkout's warp kernel).
     def sm_clock_mhz() -> float:
         return float(subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm",
@@ -745,15 +849,20 @@ def main() -> int:
     for label, args in (("F=191,551", (fi32, fj32, sz32, inst.rates.float())),
                         ("F=443,943", args526)):
         n = args[0].numel()
-        ca.coflow_assign_cuda(*args, DELTA, n_ports=N_PORTS)  # warm
-        for kernel in ("warp", "chain_sm90", "chain_sm90", "warp"):
-            t_ms = event_ms(lambda: ca.coflow_assign_cuda(
-                *args, DELTA, n_ports=N_PORTS, kernel=kernel), reps=5)
-            mhz = sm_clock_mhz()
-            turns.setdefault((label, kernel), []).append((t_ms, mhz))
-            log(f"[5] {label} {kernel}: {t_ms:.3f} ms, {1e6 * t_ms / n:.1f} "
-                f"ns and {1e3 * t_ms * mhz / n:.0f} cycles per flow (SM clock "
-                f"{mhz:.0f} MHz; {smi})")
+        for K, order in ((len(RATES), ("chain_sm90", "lanes_sm90",
+                                       "lanes_sm90", "chain_sm90")),
+                         *((k, ("lanes_sm90",) * 2) for k in LANES_TIMED_K)):
+            kargs = args if K == len(RATES) else (*args[:3],
+                                                  repeated_rates(K))
+            ca.coflow_assign_cuda(*kargs, DELTA, n_ports=N_PORTS)  # warm
+            for kernel in order:
+                t_ms = event_ms(lambda: ca.coflow_assign_cuda(
+                    *kargs, DELTA, n_ports=N_PORTS, kernel=kernel), reps=5)
+                mhz = sm_clock_mhz()
+                turns.setdefault((label, K, kernel), []).append((t_ms, mhz))
+                log(f"[5] {label} K={K} {kernel}: {t_ms:.3f} ms, "
+                    f"{1e6 * t_ms / n:.1f} ns and {1e3 * t_ms * mhz / n:.0f} "
+                    f"cycles per flow (SM clock {mhz:.0f} MHz; {smi})")
         bytes_s = (BYTES_PER_FLOW * n + 4 * inst.K) / HBM_BYTES_PER_S
         ops_s = OPS_PER_FLOW_CORE * n * inst.K / FP32_OPS_PER_S
         floor_cycles = CHAIN_CYCLES_PER_OP * chain_dependent_ops(inst.K)
@@ -763,16 +872,26 @@ def main() -> int:
             f"{floor_ms:.3f} ms (derived: {chain_dependent_ops(inst.K)} "
             f"dependent instructions x {CHAIN_CYCLES_PER_OP} cycles = "
             f"{floor_cycles} cycles a flow at {mhz:.0f} MHz)")
-    ms = sum(t for t, _ in turns[("F=191,551", "chain_sm90")]) / 2
-    warp_ms = sum(t for t, _ in turns[("F=191,551", "warp")]) / 2
-    if ms >= warp_ms:
-        log(f"[5] the chain kernel ({ms:.3f} ms) is not faster than the warp "
-            f"kernel ({warp_ms:.3f} ms) at F=191,551")
+        for K in (len(RATES), *LANES_TIMED_K):
+            ops = lanes_dependent_ops(K)
+            log(f"[5] {label}: lanes kernel floor at K={K} "
+                f"{CHAIN_CYCLES_PER_OP * ops * n / (1e3 * mhz):.3f} ms "
+                f"(derived: {ops} dependent instructions x "
+                f"{CHAIN_CYCLES_PER_OP} cycles = {CHAIN_CYCLES_PER_OP * ops} "
+                f"cycles a flow)")
+    ms = sum(t for t, _ in turns[("F=191,551", 3, "chain_sm90")]) / 2
+    lanes3_ms = sum(t for t, _ in turns[("F=191,551", 3, "lanes_sm90")]) / 2
+    log(f"[5] at K=3, F=191,551: the chain kernel {ms:.3f} ms, the lanes "
+        f"kernel {lanes3_ms:.3f} ms (run_fast keeps the chain kernel for "
+        f"K <= 8)")
     bytes_s = (BYTES_PER_FLOW * F + 4 * inst.K) / HBM_BYTES_PER_S
     ops_s = OPS_PER_FLOW_CORE * F * inst.K / FP32_OPS_PER_S
     bound_ms = 1e3 * max(bytes_s, ops_s)
+    lanes_bytes_s = (BYTES_PER_FLOW * F16 + 4 * LANES_K) / HBM_BYTES_PER_S
+    lanes_ops_s = OPS_PER_FLOW_CORE * F16 * LANES_K / FP32_OPS_PER_S
     log(f"[5] plain version: {1e3 * plain_main_s:.1f} ms at F={F}, "
-        f"{1e3 * plain_4096_s:.1f} ms at 4,096 flows")
+        f"{1e3 * plain_4096_s:.1f} ms at 4,096 flows, "
+        f"{1e3 * plain_lanes_s:.1f} ms at K={LANES_K}, F={F16}")
 
     fa_rows = serve_phases(torch, dev, built)
     log(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
@@ -794,6 +913,8 @@ def main() -> int:
     log(f"[17] phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     example_launches = example_phases(torch)
     log(f"[18] phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    log(f"[total] the script took {time.perf_counter() - T_SCRIPT:.1f} s of "
+        f"its 1,200")
     for row in fa_rows:  # phase 8's launches, 14's, 15's and 18's
         kernel = "sm90_bf16" if row["name"] == "flash_attention" \
             else "simt_fp32"
@@ -803,23 +924,30 @@ def main() -> int:
 
     assign_row = {"route": "cuda",
                   "replaces": "src/repro/kernels/coflow_assign.py:38",
-                  "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
-                  "bound_by": "bytes" if bytes_s >= ops_s else "operations",
                   "library_ms": None}
+
+    def assign_launches(name):
+        return sum(n[name] for n in (
+            main_launches, lanes_main_launches, online_launches,
+            stream_launches, oracle_launches, comm_launches,
+            example_launches))
+
     log(json.dumps({"kernels": [
         {"name": "coflow_assign",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
-         "launches": main_launches["chain_sm90"]
-         + online_launches["chain_sm90"] + stream_launches["chain_sm90"]
-         + oracle_launches["chain_sm90"] + comm_launches["chain_sm90"]
-         + example_launches["chain_sm90"],
-         "max_abs_err": float(max_err["chain_sm90"]), "ms": ms, **assign_row},
-        {"name": "coflow_assign_warp",
-         "source": "src/repro_torch/kernels/csrc/coflow_assign.cu",
-         "launches": main_launches["warp"] + online_launches["warp"]
-         + stream_launches["warp"] + oracle_launches["warp"]
-         + comm_launches["warp"] + example_launches["warp"],
-         "max_abs_err": float(max_err["warp"]), "ms": warp_ms, **assign_row},
+         "launches": assign_launches("chain_sm90"),
+         "max_abs_err": float(max_err["chain_sm90"]), "ms": ms,
+         "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
+         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+         **assign_row},
+        {"name": "coflow_assign_lanes",
+         "source": "src/repro_torch/kernels/csrc/coflow_assign_lanes_sm90.cu",
+         "launches": assign_launches("lanes_sm90"),
+         "max_abs_err": float(max_err["lanes_sm90"]), "ms": lanes_step_ms,
+         "plain_ms": 1e3 * plain_lanes_s,
+         "bound_ms": 1e3 * max(lanes_bytes_s, lanes_ops_s),
+         "bound_by": "bytes" if lanes_bytes_s >= lanes_ops_s
+         else "operations", **assign_row},
         *fa_rows, *family_rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -862,9 +990,9 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
     osched, t_run = sync_time(lambda: run_fast_online(oinst,
                                                       backend="kernel"))
     launches = dict(ca.launches_by_kernel)
-    if launches != {"chain_sm90": 1, "warp": 0} or ca.launches != 1:
+    if launches != {"chain_sm90": 1, "lanes_sm90": 0} or ca.launches != 1:
         raise AssertionError(f"run_fast_online must launch the chain kernel "
-                             f"once and the warp kernel never; counted "
+                             f"once and the lanes kernel never; counted "
                              f"{launches}")
     _, t_val = sync_time(lambda: validate(osched, releases=rel))
     F = osched.n_flows
@@ -907,13 +1035,13 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
 
     fi32, fj32, sz32 = fi.int(), fj.int(), size.float()
     rates32 = inst.rates.float()
-    warp = ca.coflow_assign_cuda(fi32, fj32, sz32, rates32, DELTA,
-                                 n_ports=N_PORTS, kernel="warp")
-    n_diff = int((warp != core).sum())
-    log(f"[9] chain kernel vs warp kernel on all {F} arrival-ordered flows: "
-        f"{n_diff} choices differ")
+    lanes = ca.coflow_assign_cuda(fi32, fj32, sz32, rates32, DELTA,
+                                  n_ports=N_PORTS, kernel="lanes_sm90")
+    n_diff = int((lanes != core).sum())
+    log(f"[9] chain kernel vs lanes kernel (named at K={inst.K}) on all {F} "
+        f"arrival-ordered flows: {n_diff} choices differ")
     if n_diff:
-        raise AssertionError("chain kernel != warp kernel on the online flows")
+        raise AssertionError("chain kernel != lanes kernel on the online flows")
     kernel_vs_plain("first 4,096 arrival-ordered flows", fi32[:4096],
                     fj32[:4096], sz32[:4096], rates32, DELTA, N_PORTS, phase=9)
     # The kernel keeps its state in fp32 (the Pallas kernel's contract);
@@ -988,8 +1116,8 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
                 dataclasses.replace(r, wall_s=0.0):
             raise AssertionError(f"pool row {r} != serial row {one}")
     t10 = time.perf_counter() - t10
-    if host_launches != {"chain_sm90": 0, "warp": 0} or grid_launches != {
-            "chain_sm90": len(kern), "warp": 0}:
+    if host_launches != {"chain_sm90": 0, "lanes_sm90": 0} or grid_launches != {
+            "chain_sm90": len(kern), "lanes_sm90": 0}:
         raise AssertionError(f"the host backend must launch nothing and each "
                              f"kernel point the chain kernel once; counted "
                              f"{host_launches}, then {grid_launches}")
@@ -1181,7 +1309,7 @@ def stream_phases(torch, dev, oinst, ccts64, foinst, sched):
             summ["coflows_finalized"]) != (F, 0, M):
         raise AssertionError(f"the stream must commit all {F} flows of "
                              f"{M} coflows; summary {summ}")
-    if stream_launches != {"chain_sm90": 0, "warp": 0}:
+    if stream_launches != {"chain_sm90": 0, "lanes_sm90": 0}:
         raise AssertionError(f"the streaming plane assigns on the fp64 host "
                              f"backend and launches nothing; counted "
                              f"{stream_launches}")
@@ -1239,7 +1367,7 @@ def stream_phases(torch, dev, oinst, ccts64, foinst, sched):
         lambda: mgr.schedule_instance(sched.inst, backend="kernel"))
     oneshot_launches = dict(ca.launches_by_kernel)
     if (hit1, hit2) != (False, True) or after_miss != {
-            "chain_sm90": 1, "warp": 0} or oneshot_launches != after_miss:
+            "chain_sm90": 1, "lanes_sm90": 0} or oneshot_launches != after_miss:
         raise AssertionError(f"the one-shot plane must launch the chain "
                              f"kernel once on the miss and not on the hit; "
                              f"hits {(hit1, hit2)}, launches {after_miss} "
@@ -1457,7 +1585,7 @@ def oracle_phases(torch, dev, trace, inst, sched, offline64):
             gi = oinst.inst
             order = online_orders(gi, oinst.releases)[0]
         n = {k: ca.launches_by_kernel[k] - before[k] for k in ca.KERNELS}
-        if n != {"chain_sm90": 1, "warp": 0}:
+        if n != {"chain_sm90": 1, "lanes_sm90": 0}:
             raise AssertionError(f"cross_check ({mode}, kernel) must launch "
                                  f"the chain kernel once; counted {n}")
         fl = extract_flows(gi, order)
@@ -1498,8 +1626,8 @@ def oracle_phases(torch, dev, trace, inst, sched, offline64):
         workers=WORKERS, **kw))
     n_host = {k: mid[k] - before[k] for k in ca.KERNELS}
     n_kern = {k: ca.launches_by_kernel[k] - mid[k] for k in ca.KERNELS}
-    if n_host != {"chain_sm90": 0, "warp": 0} or n_kern != {
-            "chain_sm90": len(kern), "warp": 0}:
+    if n_host != {"chain_sm90": 0, "lanes_sm90": 0} or n_kern != {
+            "chain_sm90": len(kern), "lanes_sm90": 0}:
         raise AssertionError(f"the oracle grid must launch nothing on the "
                              f"host backend and the chain kernel once per "
                              f"kernel point; counted {n_host}, {n_kern}")
@@ -2103,6 +2231,7 @@ def train_phases(torch, dev):
     if t15 > TRAIN_BUDGET_S:
         log("[15] over the budget: 15a's steps are the first cut")
     return launches, {"cfg": cfg, "B": B, "losses": losses[:2],
+                      "later_losses": losses[2:4],
                       "peak_bytes": peak_bytes, "step_s": steady,
                       "mid": mid}
 
@@ -2481,7 +2610,7 @@ def comm_phases(torch, dev, train_ref: dict) -> dict:
     (p2, hit2), t_hit = sync_time(
         lambda: mgr.schedule_instance(inst, backend="kernel"))
     if (hit1, hit2) != (False, True) or launches != {
-            "chain_sm90": 1, "warp": 0} or ca.launches_by_kernel != launches:
+            "chain_sm90": 1, "lanes_sm90": 0} or ca.launches_by_kernel != launches:
         raise AssertionError(f"16b: the step's coflows must launch the chain "
                              f"kernel once on the miss and not on the hit; "
                              f"hits {(hit1, hit2)}, launches {launches} then "
@@ -2709,20 +2838,20 @@ def elastic_phases(torch, dev, train_ref: dict) -> None:
             resumed_losses = [h["loss"] for h in resumed.history]
             del resumed
             free()
-            whole = train_loop(cfg, mesh=mesh, steps=4, **kw)
-            whole_losses = [h["loss"] for h in whole.history]
-            del whole
-            free()
             shutil.rmtree(ckdir, ignore_errors=True)
-            r_res = rel(resumed_losses, whole_losses[2:])
+            # 15a is the uninterrupted run of the same config, seed and
+            # batches: steps 3-4 of its history stand for one of 17b's own
+            uninterrupted = train_ref["later_losses"]
+            r_res = rel(resumed_losses, uninterrupted)
             r_15a = rel(first_losses, train_ref["losses"])
             log(f"[17b] resumed from step 2 to 4: losses {resumed_losses!r} "
-                f"against the uninterrupted run's {whole_losses[2:]!r} "
-                f"(relative {r_res!r}); the first two {first_losses!r} "
-                f"against 15a's {train_ref['losses']!r} (relative {r_15a!r})"
-                f"; 17b took {time.perf_counter() - t0:.1f} s")
-            if len(resumed_losses) != 2 or max(r_res) > 1e-6 \
-                    or max(r_15a) > 1e-6:
+                f"against the uninterrupted run's (15a's steps 3-4) "
+                f"{uninterrupted!r} (relative {r_res!r}); the first two "
+                f"{first_losses!r} against 15a's {train_ref['losses']!r} "
+                f"(relative {r_15a!r}); 17b took "
+                f"{time.perf_counter() - t0:.1f} s")
+            if len(resumed_losses) != 2 or len(uninterrupted) != 2 \
+                    or max(r_res) > 1e-6 or max(r_15a) > 1e-6:
                 raise AssertionError("17b: the resumed run must equal the "
                                      "uninterrupted one within 1e-6")
 
@@ -2927,7 +3056,8 @@ def elastic_phases(torch, dev, train_ref: dict) -> None:
     t17 = time.perf_counter() - t17
     log(f"[17] phase 17 took {t17:.1f} s (budget {ELASTIC_BUDGET_S:.0f} s)")
     if t17 > ELASTIC_BUDGET_S:
-        log("[17] over the budget: 17b's uninterrupted run is the first cut")
+        log("[17] over the budget; the script's next cuts are phase 12's "
+            "and 13b's depth")
 
 
 def example_child(script: str, *args: str) -> int:

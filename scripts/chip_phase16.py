@@ -38,7 +38,7 @@ def main() -> int:
     from repro_torch.launch.train import train_loop
     from repro_torch.train.optimizer import OptimizerConfig
 
-    for name in ("coflow_assign_sm90", "coflow_assign"):
+    for name in ("coflow_assign_sm90", "coflow_assign_lanes_sm90"):
         _build.load(name)  # built before the phase, as in chip_smoke.py
     cfg = dataclasses.replace(get_arch("tinyllama-1.1b").config,
                               attention_impl="chunked", remat_policy="full")

@@ -2,9 +2,11 @@
 """``chip_smoke.py``'s phase 17 alone: sharded checkpoints and their restore,
 the int8 cross-pod step and the elastic trainer with the fabric.
 
-Trains TinyLlama-1.1B for 2 steps unsharded as phase 15(a) does (its
-config, batch, microbatches and seed) for 17's reference losses and peak
-memory (``max_memory_allocated``), then runs ``chip_smoke.elastic_phases``:
+Trains TinyLlama-1.1B for 4 steps unsharded as phase 15(a) does (its
+config, batch, microbatches and seed) for 17's reference losses (the first
+two, and steps 3-4 as the uninterrupted run 17(b)'s resume must equal) and
+peak memory (``max_memory_allocated``), then runs
+``chip_smoke.elastic_phases``:
 17(a) the dry run's peak estimate of that step in a process of its own,
 17(b) a full-width sharded checkpoint, its restore and a resume on a 1x1
 NCCL mesh, 17(c) the compressed step on a (1, 1, 1) mesh, 17(d)
@@ -41,7 +43,7 @@ def main() -> int:
     full = dataclasses.replace(get_arch("tinyllama-1.1b").config,
                                attention_impl="chunked")
     torch.cuda.reset_peak_memory_stats()
-    run = train_loop(full, steps=2, global_batch=chip_smoke.TRAIN_B,
+    run = train_loop(full, steps=4, global_batch=chip_smoke.TRAIN_B,
                      seq_len=chip_smoke.TRAIN_S,
                      microbatches=chip_smoke.TRAIN_MB,
                      opt_cfg=OptimizerConfig(
@@ -49,13 +51,15 @@ def main() -> int:
                          total_steps=chip_smoke.TRAIN_STEPS),
                      log_every=0, device="cuda", seed=0)
     ref = {"cfg": full, "B": chip_smoke.TRAIN_B,
-           "losses": [h["loss"] for h in run.history],
+           "losses": [h["loss"] for h in run.history[:2]],
+           "later_losses": [h["loss"] for h in run.history[2:4]],
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "step_s": run.step_s[-1],
            "mid": dataclasses.replace(full, name="tinyllama-mid",
                                       d_model=512, n_heads=8, n_kv_heads=4,
                                       d_ff=1408, n_layers=4)}
-    print(f"[15a] 2 steps: losses {ref['losses']!r}, step times "
+    print(f"[15a] 4 steps: losses {ref['losses'] + ref['later_losses']!r}, "
+          f"step times "
           f"{[round(t, 3) for t in run.step_s]} s, peak max_memory_allocated "
           f"{ref['peak_bytes'] / 2 ** 30:.2f} GiB", flush=True)
     del run

@@ -23,14 +23,16 @@ shapes part of the reviewed source instead of tribal knowledge:
   ``__d*`` double intrinsic (comments and literals are not read). The
   assignment kernels are bit-equal to ``assign_ref`` only when no
   multiply-add is contracted, so ``kernels/_build.py``'s ``EXTRA_FLAGS``
-  must give ``-fmad=false`` to ``coflow_assign`` and
-  ``coflow_assign_sm90``, and nothing may turn it back on.
+  must give ``-fmad=false`` to ``coflow_assign_sm90`` and
+  ``coflow_assign_lanes_sm90``, and nothing may turn it back on.
 - ``blockspec-shape`` (RL204): literal ``BlockSpec`` tiles must be
   positive and divide literal ``out_shape`` dims. For the CUDA kernels,
   the Python side and the source must agree on the tiles, and every tile
   is positive: ``kernels/coflow_assign.py``'s ``CHAIN_CHUNK`` and
   ``CHAIN_STAGES`` are ``kChunk`` and ``kStages`` of
-  ``csrc/coflow_assign_sm90.cu``; ``kernels/flash_attention.py``'s
+  ``csrc/coflow_assign_sm90.cu``, its ``LANES_CHUNK``, ``LANES_STAGES``
+  and ``LANES_PER_LANE`` are ``kChunk``, ``kStages`` and ``kMaxPerLane``
+  of ``csrc/coflow_assign_lanes_sm90.cu``; ``kernels/flash_attention.py``'s
   ``HEAD_DIMS`` are the head dims each of its ``KERNELS`` instantiates
   (``launch<Dh>``), and its ``TILES[kernel][Dh]`` are that source's
   ``(kBlockQ, block_k(Dh))`` (``kBlockK`` where it has no ``block_k``).
@@ -416,7 +418,7 @@ def check_contracts(mod: Module,
 # ---------------------------------------------------- RL203/204, CUDA side
 
 #: Kernels bit-equal to ``assign_ref``: built without FMA contraction.
-_NO_FMA_KERNELS = ("coflow_assign", "coflow_assign_sm90")
+_NO_FMA_KERNELS = ("coflow_assign_sm90", "coflow_assign_lanes_sm90")
 _FMA_ON = ("-fmad=true", "--fmad=true", "-use_fast_math", "--use_fast_math")
 #: Launch-side tile constants and the kernel constants they must equal:
 #: (module under kernels/, its constant, source under kernels/csrc/, its
@@ -424,9 +426,15 @@ _FMA_ON = ("-fmad=true", "--fmad=true", "-use_fast_math", "--use_fast_math")
 _TILE_PAIRS = (
     ("coflow_assign.py", "CHAIN_CHUNK", "coflow_assign_sm90.cu", "kChunk"),
     ("coflow_assign.py", "CHAIN_STAGES", "coflow_assign_sm90.cu", "kStages"),
+    ("coflow_assign.py", "LANES_CHUNK", "coflow_assign_lanes_sm90.cu",
+     "kChunk"),
+    ("coflow_assign.py", "LANES_STAGES", "coflow_assign_lanes_sm90.cu",
+     "kStages"),
+    ("coflow_assign.py", "LANES_PER_LANE", "coflow_assign_lanes_sm90.cu",
+     "kMaxPerLane"),
 )
 #: Tile constexprs of the CUDA sources, each of which must be positive.
-_TILE_NAMES = ("kChunk", "kStages", "kBlockQ", "kBlockK")
+_TILE_NAMES = ("kChunk", "kStages", "kMaxPerLane", "kBlockQ", "kBlockK")
 
 _DEVICE_FN = re.compile(r"\b__(?:global|device)__\b")
 _DOUBLE = re.compile(r"\bdouble\b")

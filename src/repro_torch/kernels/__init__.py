@@ -5,9 +5,10 @@
                      ``_assign_kernel``. Two CUDA C++ kernels chosen by the
                      number of cores K: K <= 8 in
                      ``csrc/coflow_assign_sm90.cu`` (the chain in
-                     registers), 9 <= K <= 32 in ``csrc/coflow_assign.cu``
-                     (one warp, lane k owns core k). ``hazards`` makes the
-                     flow streams they are tested on.
+                     registers), 9 <= K <= 256 in
+                     ``csrc/coflow_assign_lanes_sm90.cu`` (lane l owns
+                     cores [C*l, C*l + C), C = ceil(K/32)). ``hazards``
+                     makes the flow streams they are tested on.
   flash_attention  — blocked causal/local GQA attention forward (Sq and
                      Sk may differ; Dh 64, 128 or 256); replaces the Pallas
                      kernel ``_fa_kernel``. Two CUDA C++ kernels chosen by

@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: equality), and the fp32 attention kernel, whose explicit fmaf chains keep
 #: their order under it. The bf16 attention kernel's contract is 2e-2 and
 #: takes no such flag.
-EXTRA_FLAGS = {"coflow_assign": ("-fmad=false",),
-               "coflow_assign_sm90": ("-fmad=false",),
+EXTRA_FLAGS = {"coflow_assign_sm90": ("-fmad=false",),
+               "coflow_assign_lanes_sm90": ("-fmad=false",),
                "flash_attention": ("-fmad=false",)}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

@@ -3,13 +3,15 @@
 Port of the Pallas TPU kernel ``_assign_kernel`` (``repro.kernels.
 coflow_assign``). One function, in three versions:
 
-  - :func:`coflow_assign_cuda`, the wrapper of two hand-written Hopper
+  - :func:`coflow_assign_cuda`, the wrapper of the hand-written Hopper
     kernels, chosen by the number of cores K: ``"chain_sm90"``
     (``csrc/coflow_assign_sm90.cu``, 1 <= K <= 8: the chain of choices in
     registers, the per-core arithmetic spread over a warp's lanes, flows
-    streamed by a producer warp) and ``"warp"`` (``csrc/coflow_assign.cu``,
-    9 <= K <= 32: one warp, lane k owns core k).
-    The notes in the sources give each design and what bounds it.
+    streamed by a producer warp) and ``"lanes_sm90"``
+    (``csrc/coflow_assign_lanes_sm90.cu``, 9 <= K <= 256: the same ring and
+    pipeline, lane l owning cores [C*l, C*l + C), C = ceil(K/32), and the
+    argmin in a warp reduction and a ballot). The notes in the sources
+    give each design and what bounds it.
   - :func:`coflow_assign_plain`, the plain PyTorch version: the same
     sequential fp32 chain in the same operation order, one flow at a time.
     The CPU tests and ``chip_smoke.py`` hold both kernels to it bit for bit.
@@ -31,17 +33,24 @@ __all__ = ["coflow_assign_cuda", "coflow_assign_plain", "launches",
            "launches_by_kernel", "KERNELS", "kernel_for", "MAX_CORES",
            "CHAIN_MAX_CORES", "SMEM_LIMIT"]
 
-#: Lanes of the warp kernel's one warp: it gives each core one lane.
-MAX_CORES = 32
 #: Cores the chain kernel serves: every lane holds all K candidates.
 CHAIN_MAX_CORES = 8
+#: Cores a lane of the lanes kernel holds in registers (``kMaxPerLane``):
+#: some 30 registers a core, so 6 take 240 of the 255 a thread can have and
+#: 7 and 8 spill a little (ptxas, PERF.md).
+LANES_PER_LANE = 8
+#: The most cores the wrapper serves: 32 lanes of LANES_PER_LANE cores.
+MAX_CORES = 32 * LANES_PER_LANE
 #: Shared memory a block may use on Hopper (227 KB, opt-in above 48 KB).
 SMEM_LIMIT = 232_448
 #: Kernel name -> csrc source.
-KERNELS = {"chain_sm90": "coflow_assign_sm90", "warp": "coflow_assign"}
+KERNELS = {"chain_sm90": "coflow_assign_sm90",
+           "lanes_sm90": "coflow_assign_lanes_sm90"}
 #: The chain kernel's flow ring (``kChunk`` flows a stage, ``kStages``
-#: stages in ``csrc/coflow_assign_sm90.cu``).
+#: stages in ``csrc/coflow_assign_sm90.cu``); the lanes kernel's likewise
+#: (``csrc/coflow_assign_lanes_sm90.cu``).
 CHAIN_CHUNK, CHAIN_STAGES = 512, 4
+LANES_CHUNK, LANES_STAGES = 512, 4
 
 launches = 0
 launches_by_kernel = dict.fromkeys(KERNELS, 0)
@@ -49,8 +58,8 @@ launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 def kernel_for(k_cores: int) -> str:
     """The kernel that serves K cores: ``"chain_sm90"`` for K <= 8, else
-    ``"warp"``."""
-    return "chain_sm90" if k_cores <= CHAIN_MAX_CORES else "warp"
+    ``"lanes_sm90"``."""
+    return "chain_sm90" if k_cores <= CHAIN_MAX_CORES else "lanes_sm90"
 
 
 def coflow_assign_plain(fi: torch.Tensor, fj: torch.Tensor,
@@ -109,15 +118,30 @@ def _chain_smem_layout(k_cores: int, n_ports: int) -> tuple[int, bool]:
     return fixed, False
 
 
-def _smem_layout(k_cores: int, n_ports: int) -> tuple[int, int, int, bool]:
-    """The warp kernel's (stride, bitmap words per core, shared bytes,
-    bitmap in shared)."""
-    stride = n_ports | 1  # odd row stride: the K lanes hit K distinct banks
-    loads = 4 * k_cores * stride * 4
-    words = (n_ports * n_ports + 31) // 32
-    if loads + k_cores * words * 4 <= SMEM_LIMIT:
-        return stride, words, loads + k_cores * words * 4, True
-    return stride, words, loads, False
+def _lanes_layout(k_cores: int, n_ports: int) -> tuple[int, int, int, int]:
+    """The lanes kernel's (cores a lane C, shared bytes, global state bytes,
+    global bitmap bytes; 0 where that part is in shared memory).
+
+    Shared memory holds the mbarriers, the flow ring (16 B a flow), the
+    choice ring (4 B) and the losing lanes' store slots (20 B a lane), then
+    the row and col state (``C * 32`` pairs of fp32 load and tau a port
+    each) while it fits, then the bitmap (``C`` words a cell) while it fits
+    too; what does not fit is a global scratch.
+    """
+    c = -(-k_cores // 32)
+    shared = (16 * LANES_STAGES + LANES_CHUNK * LANES_STAGES * (16 + 4)
+              + 32 * 20)
+    state = 2 * n_ports * 32 * c * 8
+    nz = 4 * c * n_ports * n_ports
+    if shared + state > SMEM_LIMIT:
+        return c, shared, state, nz
+    if shared + state + nz > SMEM_LIMIT:
+        return c, shared + state, 0, nz
+    return c, shared + state + nz, 0, 0
+
+
+#: The most cores each kernel serves.
+_MAX_CORES = {"chain_sm90": CHAIN_MAX_CORES, "lanes_sm90": MAX_CORES}
 
 
 def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
@@ -128,25 +152,25 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
 
     Takes ``fi``/``fj`` int32, ``sizes`` float32 (all ``(F,)``) and
     ``rates`` float32 ``(K,)``, contiguous, on one CUDA device. ``kernel``
-    is ``None`` (``kernel_for(K)``: the chain kernel for K <= 8, the warp
-    kernel above) or a name of ``KERNELS``, so a test can run the warp
+    is ``None`` (``kernel_for(K)``: the chain kernel for K <= 8, the lanes
+    kernel above) or a name of ``KERNELS``, so a test can run the lanes
     kernel at K <= 8 beside the chain kernel; ``ops.coflow_assign`` never
-    names one. Raises on anything else, on K > 32 (K > 8 for the chain
-    kernel), and when the build or the launch fails. F = 0 returns an empty
-    tensor without a launch.
+    names one. Raises on anything else, on more cores than the kernel holds
+    in registers (8 for the chain kernel; ``MAX_CORES`` = 256, 8 a lane,
+    for the lanes kernel), when a global scratch cannot be allocated or its
+    word index would pass int32, and when the build or the launch fails.
+    F = 0 returns an empty tensor without a launch.
     """
     global launches
     k_cores = rates.shape[0]
-    if not 1 <= k_cores <= MAX_CORES:
-        raise ValueError(f"the kernel gives each core one lane of a warp: "
-                         f"1 <= K <= {MAX_CORES}, got K={k_cores}")
     name = kernel_for(k_cores) if kernel is None else kernel
     if name not in KERNELS:
         raise ValueError(f"kernel must be None or one of {list(KERNELS)}, "
                          f"got {kernel!r}")
-    if name == "chain_sm90" and k_cores > CHAIN_MAX_CORES:
-        raise ValueError(f"the chain kernel holds K <= {CHAIN_MAX_CORES} "
-                         f"cores in registers, got K={k_cores}")
+    if not 1 <= k_cores <= _MAX_CORES[name]:
+        raise ValueError(
+            f"the {name} kernel holds 1 <= K <= {_MAX_CORES[name]} cores in "
+            f"registers, got K={k_cores}")
     tensors = (fi, fj, sizes, rates)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("coflow_assign_cuda needs CUDA tensors")
@@ -161,12 +185,17 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
             or fj.shape[0] != n_flows or sizes.shape[0] != n_flows:
         raise ValueError("coflow_assign_cuda takes contiguous 1-D inputs "
                          "with one length F")
+    scratch = {}  # bytes of each global scratch buffer the kernel takes
     if name == "chain_sm90":
         smem, nz_shared = _chain_smem_layout(k_cores, n_ports)
-        nz_bytes = n_ports * n_ports
+        scratch["nz"] = 0 if nz_shared else n_ports * n_ports
     else:
-        stride, words, smem, nz_shared = _smem_layout(k_cores, n_ports)
-        nz_bytes = 4 * k_cores * words
+        _c, smem, scratch["state"], scratch["nz"] = _lanes_layout(
+            k_cores, n_ports)
+        if scratch["nz"] // 4 >= 2 ** 31:
+            raise ValueError(
+                f"K={k_cores}, N={n_ports}: the lanes kernel's bitmap of "
+                f"{scratch['nz']} B has more words than an int32 indexes")
     if smem > SMEM_LIMIT:
         raise ValueError(f"K={k_cores}, N={n_ports}: the {name} kernel's "
                          f"state needs {smem} B of shared memory, more than "
@@ -175,9 +204,12 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
     if n_flows == 0:
         return out
     lib = _build.load(KERNELS[name])
-    nz = None if nz_shared else torch.zeros(
-        nz_bytes, dtype=torch.uint8, device=fi.device)
-    nz_ptr = None if nz is None else nz.data_ptr()
+    # a zeroed global buffer where the part does not fit in shared memory;
+    # torch raises if it cannot be allocated
+    bufs = {part: torch.zeros(n, dtype=torch.uint8, device=fi.device)
+            for part, n in scratch.items() if n}
+    ptr = {part: bufs[part].data_ptr() if part in bufs else None
+           for part in scratch}
     with torch.cuda.device(fi.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (fi.data_ptr(), fj.data_ptr(), sizes.data_ptr(),
@@ -187,16 +219,15 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + \
                 [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-            err = fn(*ptrs, float(delta), n_flows, k_cores, n_ports, nz_ptr,
-                     out.data_ptr(), stream)
+            err = fn(*ptrs, float(delta), n_flows, k_cores, n_ports,
+                     ptr["nz"], out.data_ptr(), stream)
         else:
-            fn = lib.coflow_assign_launch
+            fn = lib.coflow_assign_lanes_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + \
-                [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_void_p, ctypes.c_void_p]
-            err = fn(*ptrs, float(delta), n_flows, k_cores, n_ports, stride,
-                     words, nz_ptr, smem, out.data_ptr(), stream)
+                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            err = fn(*ptrs, float(delta), n_flows, k_cores, n_ports,
+                     ptr["state"], ptr["nz"], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"coflow_assign {name} kernel launch failed: CUDA "
                            f"error {err} (K={k_cores}, N={n_ports}, "

@@ -131,18 +131,6 @@ def test_cuda_wrapper_rejects_cpu_tensors_and_bad_shapes():
         ca.coflow_assign_cuda(f, f, sz, torch.ones(3), 1.0, n_ports=4)
 
 
-@pytest.mark.parametrize("K, N, nz_shared", [
-    (3, 150, True), (8, 150, True), (8, 512, False), (32, 64, True)])
-def test_bitmap_placement(K, N, nz_shared):
-    """The nonzero bitmap stays in shared memory while K*N^2 bits fit beside
-    the loads, else it moves to a global scratch buffer."""
-    stride, words, smem, shared = ca._smem_layout(K, N)
-    assert shared is nz_shared
-    assert stride % 2 == 1 and stride >= N
-    assert words * 32 >= N * N
-    assert smem <= ca.SMEM_LIMIT
-
-
 # ---------------------------------------------------------------------------
 # Hazard streams: flows that repeat the ports of a flow 1..4 steps before,
 # runs of one egress port, exact ties and zero sizes. The chain kernel
@@ -198,10 +186,10 @@ def test_hazard_streams_hit_their_hazard(kind):
 
 
 def test_routing_and_kernel_choice():
-    """K <= 8 goes to the chain kernel, 9..32 to the warp kernel; a named
-    kernel is checked before anything is launched."""
+    """K <= 8 goes to the chain kernel, 9 and up to the lanes kernel; a
+    named kernel is checked before anything is launched."""
     assert [ca.kernel_for(k) for k in (1, 3, 8, 9, 32)] == [
-        "chain_sm90", "chain_sm90", "chain_sm90", "warp", "warp"]
+        "chain_sm90", "chain_sm90", "chain_sm90", "lanes_sm90", "lanes_sm90"]
     f = torch.zeros(4, dtype=torch.int32)
     sz = torch.ones(4)
     with pytest.raises(ValueError, match="one of"):
@@ -211,6 +199,80 @@ def test_routing_and_kernel_choice():
         ca.coflow_assign_cuda(f, f, sz, torch.ones(9), 1.0, n_ports=4,
                               kernel="chain_sm90")
     assert set(ca.launches_by_kernel) == set(ca.KERNELS)
+
+
+def test_lanes_kernel_serves_every_k_above_eight():
+    """Every K from 9 to MAX_CORES (32 lanes of 8 cores) is the lanes
+    kernel's; past that the wrapper names the registers a lane holds, before
+    it looks at the tensors."""
+    assert {ca.kernel_for(k) for k in range(9, ca.MAX_CORES + 1)} == {
+        "lanes_sm90"}
+    assert ca.MAX_CORES == 32 * ca.LANES_PER_LANE == 256
+    f = torch.zeros(4, dtype=torch.int32)
+    sz = torch.ones(4)
+    for k in (33, 64, 100, ca.MAX_CORES):  # past the lanes: to the CPU check
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ca.coflow_assign_cuda(f, f, sz, torch.ones(k), 1.0, n_ports=4)
+    with pytest.raises(ValueError, match="K <= 256 cores in registers"):
+        ca.coflow_assign_cuda(f, f, sz, torch.ones(ca.MAX_CORES + 1), 1.0,
+                              n_ports=4)
+
+
+# (K, N, state in shared, bitmap in shared): C = 1 at N = 150 holds both;
+# the state of N = 512 goes global, and so does the bitmap with it; at
+# K = 64 (C = 2), N = 150 the state stays and the bitmap goes; C = 8 at
+# N = 8 holds both.
+LANES_LAYOUTS = [(9, 8, True, True), (16, 150, True, True),
+                 (32, 150, True, True), (32, 512, False, False),
+                 (33, 150, True, False), (64, 150, True, False),
+                 (100, 24, True, True), (256, 8, True, True),
+                 (256, 150, False, False)]
+
+
+@pytest.mark.parametrize("K, N, state_shared, nz_shared", LANES_LAYOUTS)
+def test_lanes_kernel_layout(K, N, state_shared, nz_shared):
+    """The lanes kernel's shared and global bytes, reckoned by hand: the
+    ring's 4 stages of 512 flows at 16 B in and 4 B out, 8 mbarriers of
+    8 B and 32 lanes' slots of two (load, tau) pairs and a choice, row and
+    col state of C planes of 32 (load, tau) fp32 pairs a port, and C 32-bit
+    words a cell of bitmap; the state goes to shared memory first, the
+    bitmap after it, each while the block's 227 KB hold it."""
+    c, smem, state_global, nz_global = ca._lanes_layout(K, N)
+    assert c == -(-K // 32) and 32 * (c - 1) < K <= 32 * c
+    ring = 4 * 512 * (16 + 4) + 8 * 8 + 32 * (8 + 8 + 4)
+    state = 2 * N * (32 * c) * (4 + 4)
+    bitmap = N * N * c * 4
+    assert smem == ring + (state if state_shared else 0) + (
+        bitmap if nz_shared else 0)
+    assert smem <= ca.SMEM_LIMIT
+    assert state_global == (0 if state_shared else state)
+    assert nz_global == (0 if nz_shared else bitmap)
+    if not nz_shared:  # it went global because it did not fit
+        assert ring + (state if state_shared else 0) + bitmap > ca.SMEM_LIMIT
+
+
+# The lanes kernel's cores: one a lane (9, 16, 32), two (33, 64, the
+# second lane of core 32 alone at K = 33), four (100: lanes 25-31 padding).
+# Every K meets exact ties, and one more hazard kind each.
+LANES_HAZARDS = [(K, kind, N) for K, other, N in (
+    (9, "cell@1", 8), (16, "col@2", 24), (32, "mixed", 12),
+    (33, "row@3", 24), (64, "cell@3", 8), (100, "zeros", 24))
+    for kind in ("ties", other)]
+
+
+@pytest.mark.parametrize("case", LANES_HAZARDS,
+                         ids=[str(c) for c in LANES_HAZARDS])
+def test_plain_matches_pallas_and_oracle_past_eight_cores(case):
+    """The K the lanes kernel serves: the plain version (which
+    ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel to bit
+    for bit) against the Pallas kernel in interpret mode and the oracle."""
+    K, kind, N = case
+    fi, fj, sz, rates, delta = hazard_stream(kind, K, N, n_flows=300)
+    plain, pallas, oracle = _three_way(fi, fj, sz, rates, delta, N)
+    np.testing.assert_array_equal(plain, pallas)
+    np.testing.assert_array_equal(plain, oracle)
+    if kind == "ties":  # every core ties on the first flow: the lowest wins
+        assert plain[0] == 0
 
 
 @pytest.mark.parametrize("K, N, nz_shared", [

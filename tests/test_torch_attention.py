@@ -334,7 +334,8 @@ def test_build_key_covers_every_included_header(tmp_path, monkeypatch):
 
 
 def test_build_flags_are_per_source():
-    assert "-fmad=false" in _build.nvcc_flags("coflow_assign")
+    assert "-fmad=false" in _build.nvcc_flags("coflow_assign_sm90")
+    assert "-fmad=false" in _build.nvcc_flags("coflow_assign_lanes_sm90")
     assert "-fmad=false" in _build.nvcc_flags("flash_attention")
     assert "-fmad=false" not in _build.nvcc_flags("flash_attention_sm90")
     assert "sm_90a" in " ".join(_build.nvcc_flags("flash_attention_sm90"))

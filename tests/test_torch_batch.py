@@ -163,5 +163,5 @@ def test_worker_point_rebuilds_the_instance_from_host_arrays():
     assert all(isinstance(a, np.ndarray) for a in host[1]) and \
         host[3] == "cpu"
     row, launches = batch._run_point(host)
-    assert launches == {"chain_sm90": 0, "warp": 0}
+    assert launches == {"chain_sm90": 0, "lanes_sm90": 0}
     assert_same_rows([row], [batch._run_one(*point)])

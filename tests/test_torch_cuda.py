@@ -75,8 +75,13 @@ def test_empty_flow_list_launches_nothing(dev):
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    # K = 33 takes two cores a lane: the lanes kernel serves it
     fi, fj, sz, rates = _flows(dev, 10, 33, 8, seed=0)
-    with pytest.raises(ValueError, match="K <= 32"):
+    got = ca.coflow_assign_cuda(fi, fj, sz, rates, 1.0, n_ports=8)
+    assert torch.equal(got, ca.coflow_assign_plain(fi, fj, sz, rates, 1.0,
+                                                   n_ports=8))
+    fi, fj, sz, rates = _flows(dev, 10, ca.MAX_CORES + 1, 8, seed=0)
+    with pytest.raises(ValueError, match="K <= 256"):
         ca.coflow_assign_cuda(fi, fj, sz, rates, 1.0, n_ports=8)
     fi, fj, sz, rates = _flows(dev, 10, 3, 8, seed=0)
     with pytest.raises(ValueError, match="int32"):
@@ -126,25 +131,87 @@ def test_chain_kernel_equals_plain_on_hazard_streams(dev, kind, n_ports):
         assert torch.equal(got, want), (kind, K, n_ports)
 
 
-@pytest.mark.parametrize("K", [9, 32])
-@pytest.mark.parametrize("kind", ["cell@1", "col@2", "mixed", "ties"])
-def test_warp_kernel_serves_more_than_eight_cores(dev, kind, K):
-    fi, fj, sz, rates, delta = hazard_stream(kind, K, 150)
-    args = _on(dev, fi, fj, sz, rates)
-    before = dict(ca.launches_by_kernel)
-    got = ca.coflow_assign_cuda(*args, delta, n_ports=150)
-    assert ca.launches_by_kernel == {**before, "warp": before["warp"] + 1}
-    assert torch.equal(got, ca.coflow_assign_plain(*args, delta, n_ports=150))
+@pytest.mark.parametrize("n_ports", [8, 150, 512])
+@pytest.mark.parametrize("kind", KINDS)
+def test_lanes_kernel_equals_plain_on_hazard_streams(dev, kind, n_ports):
+    """The lanes kernel forwards the commits of the flows just ahead in
+    registers, as the chain kernel does: held to the plain version on every
+    hazard stream at one core a lane (9, 16, 32), two (33, 64), and N = 512
+    where its state is global (and at K = 64, N = 150, its bitmap)."""
+    for K in (9, 16, 32, 33, 64):
+        fi, fj, sz, rates, delta = hazard_stream(kind, K, n_ports)
+        args = _on(dev, fi, fj, sz, rates)
+        before = dict(ca.launches_by_kernel)
+        got = ca.coflow_assign_cuda(*args, delta, n_ports=n_ports)
+        torch.cuda.synchronize()
+        assert ca.launches_by_kernel == {
+            **before, "lanes_sm90": before["lanes_sm90"] + 1}
+        want = ca.coflow_assign_plain(*args, delta, n_ports=n_ports)
+        assert torch.equal(got, want), (kind, K, n_ports)
 
 
-@pytest.mark.parametrize("K, N", [(3, 150), (8, 512)])
-def test_chain_kernel_equals_warp_kernel_at_length(dev, K, N):
-    """At 20,000 flows, where the plain version is slow, the two kernels
-    agree choice for choice (the warp kernel named for the comparison)."""
+def _rates(K, dev):
+    """The trace's rates (10, 20, 30) repeated to K cores."""
+    return torch.tensor(np.resize([10.0, 20.0, 30.0], K), dtype=torch.float32,
+                        device=dev)
+
+
+def test_lanes_kernel_on_the_trace_flows(dev):
+    """The first 4,096 pi-ordered flows of the 526-coflow trace instance at
+    K = 16 (equal-rate cores tie exactly), against the plain version."""
+    inst = port.sample_instance(port.synth_fb_trace(526, seed=2026), N=150,
+                                M=526, rates=[10, 20, 30], delta=8.0, seed=0,
+                                device=dev)
+    _pos, _cid, fi, fj, sz = port.extract_flows(inst,
+                                                port.order_coflows(inst))
+    args = (fi[:4096].int(), fj[:4096].int(), sz[:4096].float(),
+            _rates(16, dev))
+    got = ca.coflow_assign_cuda(*args, 8.0, n_ports=150)
+    assert torch.equal(got, ca.coflow_assign_plain(*args, 8.0, n_ports=150))
+
+
+def test_run_fast_at_16_cores_goes_through_the_lanes_kernel(dev):
+    """run_fast(backend="kernel") at K = 16: one lanes launch, no chain
+    launch, the referee passes, and the card's schedule is the CPU's."""
+    trace = port.synth_fb_trace(526, seed=2026)
+    runs = {}
+    for d in (dev, "cpu"):
+        inst = port.sample_instance(trace, N=150, M=48,
+                                    rates=np.resize([10.0, 20.0, 30.0], 16),
+                                    delta=8.0, seed=0, device=d)
+        before = dict(ca.launches_by_kernel)
+        runs[d] = port.run_fast(inst, backend="kernel")
+        if d == dev:
+            assert {k: ca.launches_by_kernel[k] - before[k] for k in before} \
+                == {**dict.fromkeys(before, 0), "lanes_sm90": 1}
+    gpu, cpu = runs[dev], runs["cpu"]
+    port.validate(gpu)
+    for name in ("core", "t_establish", "t_complete", "ccts"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+@pytest.mark.parametrize("K, N", [(1, 8), (3, 150), (8, 512)])
+def test_lanes_kernel_equals_chain_kernel_at_length(dev, K, N):
+    """At 20,000 flows, where the plain version is slow, the lanes kernel
+    (named below K = 9) and the chain kernel agree choice for choice."""
     args = _flows(dev, 20_000, K, N, seed=K * N, n_distinct=40)
     chain = ca.coflow_assign_cuda(*args, 8.0, n_ports=N)
-    warp = ca.coflow_assign_cuda(*args, 8.0, n_ports=N, kernel="warp")
-    assert torch.equal(chain, warp)
+    lanes = ca.coflow_assign_cuda(*args, 8.0, n_ports=N, kernel="lanes_sm90")
+    assert torch.equal(chain, lanes)
+
+
+def test_lanes_kernel_layout_agrees_with_the_source(dev):
+    lib = _build.load("coflow_assign_lanes_sm90")
+    smem = lib.coflow_assign_lanes_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
+    scratch = lib.coflow_assign_lanes_scratch_bytes
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for K in (1, 9, 32, 33, 64, 100, 256):
+        for N in (8, 150, 512):
+            _c, got, state, nz = ca._lanes_layout(K, N)
+            assert smem(K, N, int(state == 0), int(nz == 0)) == got
+            assert state in (0, scratch(K, N, 0))
+            assert nz in (0, scratch(K, N, 1))
 
 
 def test_chain_kernel_layout_agrees_with_the_source(dev):
@@ -625,7 +692,7 @@ def test_pool_on_the_card_counts_the_workers_launches(dev):
     before = dict(ca.launches_by_kernel)
     pooled = port.run_batch(runs, ("ours", "sunflow-core"), workers=2, **kw)
     got = {k: ca.launches_by_kernel[k] - before[k] for k in before}
-    assert got == {"chain_sm90": len(pooled), "warp": 0}
+    assert got == {"chain_sm90": len(pooled), "lanes_sm90": 0}
     serial = port.run_batch(runs, ("ours", "sunflow-core"), workers=0, **kw)
     assert [dataclasses.replace(r, wall_s=0.0) for r in pooled] == \
         [dataclasses.replace(r, wall_s=0.0) for r in serial]

@@ -1,10 +1,11 @@
 """The port's dry run and collective analysis on a fake (2, 2, 2) mesh.
 
-The traces run in a fresh process (a fake process group is one per
-process, and its sharding propagation warms up once for all of them) that
-starts ``launch.mesh.fake_world(8)`` and traces each step on ``meta``
-DTensors, with ``subprocess.run(..., timeout=120)``; the JAX comparison
-runs in a second one:
+The traces run in three fresh processes (a fake process group is one per
+process), each of which starts ``launch.mesh.fake_world(8)`` and traces on
+``meta`` DTensors with its own time limit: the three train steps and their
+plans; a forward pass, ``lower_cell``'s three cells, the hand-countable
+step and the smoke decode cell; the 1x1 peak estimate. The JAX comparison
+runs in a fourth:
 
   - the tiny dense model and the tiny MoE of the reference's
     ``test_planner_on_compiled_step`` yield collectives, coflows, bytes
@@ -71,27 +72,26 @@ PRELUDE = textwrap.dedent("""
 """)
 
 
-def _run(body: str, env_extra=None) -> dict:
+#: Each subprocess's time limit, at least 4x its time alone with
+#: OMP_NUM_THREADS=1 (the longer of two timings: steps 47.0 s, cells
+#: 39.6 s, peak 18.4 s, the JAX comparison 7.3 s), so that a loaded
+#: parallel run does not cut it.
+STEPS_TIMEOUT, CELLS_TIMEOUT, PEAK_TIMEOUT, JAX_TIMEOUT = 240, 180, 120, 120
+
+
+def _run(body: str, env_extra=None, *, timeout: float) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1", **(env_extra or {}))
     out = subprocess.run([sys.executable, "-c", body], capture_output=True,
-                         text=True, env=env, cwd=ROOT, timeout=120)
+                         text=True, env=env, cwd=ROOT, timeout=timeout)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-TRACES = PRELUDE + textwrap.dedent("""
-    from repro_torch.distributed.sharding import (
-        TRAIN_RULES, batch_spec, plan_tree, shard_module, shard_tensor)
-    from repro_torch.models.api import build_model
-    from repro_torch.models.common import activation_sharding
-
-    out = {"ops": {}, "plan": {}, "cells": {}}
+STEPS = PRELUDE + textwrap.dedent("""
+    out = {"ops": {}, "plan": {}}
     for family, L in (("dense", 2), ("dense", 4), ("moe", 2)):
-        row = lower_cell(tiny(family, L), TRAIN, mesh, "2x2x2")
-        an = row["analysis"]
-        if (family, L) == ("dense", 2):
-            train_row = row
+        an = lower_cell(tiny(family, L), TRAIN, mesh, "2x2x2")["analysis"]
         out["ops"][f"{family}{L}"] = ops(an)
         if L == 2:
             cfs = step_coflows(an, bmap)
@@ -102,7 +102,17 @@ TRACES = PRELUDE + textwrap.dedent("""
                 "bytes": sum(c.total_bytes for c in cfs),
                 "ours": reports["ours"].weighted_cct,
                 "rand_sunflow": reports["rand-sunflow"].weighted_cct}
+    print(json.dumps(out))
+""")
 
+CELLS = PRELUDE + textwrap.dedent("""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (
+        TRAIN_RULES, batch_spec, plan_tree, shard_module, shard_tensor)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import activation_sharding
+
+    out = {"cells": {}}
     # the matmul FLOPs of a forward pass
     cfg = tiny()
     model = build_model(cfg, device="meta")
@@ -119,8 +129,7 @@ TRACES = PRELUDE + textwrap.dedent("""
     for kind, shape in (("prefill", ShapeSpec("p", "prefill", 64, 8)),
                         ("decode", ShapeSpec("d", "decode", 64, 8)),
                         ("train", TRAIN)):
-        row = train_row if kind == "train" else \
-            lower_cell(tiny(), shape, mesh, "2x2x2")
+        row = lower_cell(tiny(), shape, mesh, "2x2x2")
         an = row.pop("analysis")
         out["cells"][kind] = {"status": row["status"],
                               "args": row["memory"]["argument_bytes"],
@@ -143,13 +152,22 @@ TRACES = PRELUDE + textwrap.dedent("""
 
     out["hand_bytes"] = analyze_step(hand, x, w, mesh=mesh22).hbm_bytes
 
+    smoke = get_arch("tinyllama-1.1b").smoke
+    row = lower_cell(smoke, ShapeSpec("d", "decode", 64, 8), mesh, "2x2x2")
+    row.pop("analysis")
+    out["smoke_decode"] = row["roofline"]
+    print(json.dumps(out))
+""")
+
+PEAK = PRELUDE + textwrap.dedent("""
     # the peak estimate of a 1x1 train cell (2 microbatches, "chunked")
     # against MemTracker on the same step of real CPU tensors, unsharded
     import dataclasses
     from torch.distributed._tools.mem_tracker import MemTracker
-    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.train.step import build_train_step
+    out = {}
     small = dataclasses.replace(tiny(), attention_impl="chunked", n_layers=2,
                                 vocab=512)
     mesh11 = make_mesh((1, 1), ("data", "model"))
@@ -170,31 +188,40 @@ TRACES = PRELUDE + textwrap.dedent("""
             params, opt, {"tokens": toks, "labels": toks})
     out["peak_real"] = sum(d["Total"] for d in
                            tracker.get_tracker_snapshot("peak").values())
-
-    smoke = get_arch("tinyllama-1.1b").smoke
-    row = lower_cell(smoke, ShapeSpec("d", "decode", 64, 8), mesh, "2x2x2")
-    row.pop("analysis")
-    out["smoke_decode"] = row["roofline"]
     print(json.dumps(out))
 """)
 
 
 @pytest.fixture(scope="module")
-def traces():
-    """The traces of the cases below, from one fresh process: the fake
-    world's sharding propagation warms up once (most of a trace's time)."""
-    return _run(TRACES)
+def steps():
+    """The three traced train steps (dense 2 and 4 layers, MoE) with their
+    ops and plans, in one fresh process."""
+    return _run(STEPS, timeout=STEPS_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def cells():
+    """A forward pass's FLOPs, ``lower_cell``'s three cells, the
+    hand-countable step and the smoke decode cell, in one fresh process."""
+    return _run(CELLS, timeout=CELLS_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def peak():
+    """The 1x1 peak estimate and MemTracker's real peak, in one fresh
+    process."""
+    return _run(PEAK, timeout=PEAK_TIMEOUT)
 
 
 @pytest.mark.parametrize("family", ["dense", "moe"])
-def test_planner_on_traced_step(traces, family):
-    r = traces["plan"][family]
+def test_planner_on_traced_step(steps, family):
+    r = steps["plan"][family]
     assert r["n_coll"] > 0 and r["n_coflows"] > 0 and r["bytes"] > 0
     assert r["ours"] > 0 and r["rand_sunflow"] > 0
 
 
-def test_layer_collectives_fold_into_trip_counts(traces):
-    two, four = traces["ops"]["dense2"], traces["ops"]["dense4"]
+def test_layer_collectives_fold_into_trip_counts(steps):
+    two, four = steps["ops"]["dense2"], steps["ops"]["dense4"]
     assert len(two) == len(four)
     layered = 0
     for a, b in zip(two, four):
@@ -204,31 +231,31 @@ def test_layer_collectives_fold_into_trip_counts(traces):
     assert layered > 0
 
 
-def test_fsdp_all_gather_has_the_local_shard_and_every_data_group(traces):
+def test_fsdp_all_gather_has_the_local_shard_and_every_data_group(steps):
     data_groups = "{{0,2},{1,3},{4,6},{5,7}}"
     # blocks.wq of one layer, (64, 4 x 16) bf16: (32, 32) per rank, gathered
     # over "data" (its FSDP dim), split over "model"
     local = 32 * 32 * 2
-    got = traces["ops"]["dense2"]
+    got = steps["ops"]["dense2"]
     hits = [o for o in got if o[0] == "all-gather" and o[1] == local
             and o[2] == 2 * local and o[3] == 2 and o[5] == data_groups]
     assert hits, got
     assert all(o[4] == 2 for o in hits)  # once per layer, folded
 
 
-def test_matmul_flops_per_rank_times_ranks_equal_a_hand_count(traces):
+def test_matmul_flops_per_rank_times_ranks_equal_a_hand_count(cells):
     B, S, D, H, KVH, Dh, F, V, L = 8, 64, 64, 4, 2, 16, 96, 128, 2
     per_layer = (2 * B * S * D * H * Dh          # q
                  + 2 * 2 * B * S * D * KVH * Dh  # k, v
                  + 2 * 2 * B * H * S * S * Dh    # scores, probs @ v
                  + 2 * B * S * H * Dh * D        # o
                  + 3 * 2 * B * S * D * F)        # gate, up, down
-    assert traces["forward_flops"] * 8 == L * per_layer + 2 * B * S * D * V
+    assert cells["forward_flops"] * 8 == L * per_layer + 2 * B * S * D * V
 
 
-def test_lower_cell_train_prefill_decode(traces):
+def test_lower_cell_train_prefill_decode(cells):
     for kind in ("train", "prefill", "decode"):
-        cell = traces["cells"][kind]
+        cell = cells["cells"][kind]
         assert cell["status"] == "ok" and cell["args"] > 0, kind
         # MemTracker's peak holds the arguments it tracks, and more
         assert cell["peak"] is not None and cell["peak"] >= cell["args"]
@@ -240,29 +267,29 @@ def test_lower_cell_train_prefill_decode(traces):
         terms = {k: rf[f"{k}_s"] for k in ("compute", "memory",
                                             "collective")}
         assert rf["dominant"] == max(terms, key=terms.get)
-    assert traces["cells"]["train"]["counts"].get("reduce-scatter", 0) > 0
+    assert cells["cells"]["train"]["counts"].get("reduce-scatter", 0) > 0
 
 
-def test_memory_term_of_a_hand_countable_step(traces):
+def test_memory_term_of_a_hand_countable_step(cells):
     """Per rank: the product reads x (4, 16) and w (16, 32) and writes y
     (4, 32); the add reads y twice and writes its sum; fp32."""
     mm = (4 * 16 + 16 * 32 + 4 * 32) * 4
     add = 3 * 4 * 32 * 4
-    assert traces["hand_bytes"] == mm + add
+    assert cells["hand_bytes"] == mm + add
 
 
-def test_peak_estimate_is_the_real_steps(traces):
+def test_peak_estimate_is_the_real_steps(peak):
     """The estimate runs MemTracker on the step's meta DTensors; on the
     CPU it gives what MemTracker gives on the same step of real tensors
     (under ``FakeTensorMode`` it counted DTensor's local ops short)."""
-    assert traces["peak_estimate"] == pytest.approx(traces["peak_real"],
+    assert peak["peak_estimate"] == pytest.approx(peak["peak_real"],
                                                     rel=1e-3)
 
 
-def test_decode_cell_is_memory_bound(traces):
+def test_decode_cell_is_memory_bound(cells):
     """A decode step reads every weight and the cache for one token a
     sequence: the memory term dominates, and the bound is that term."""
-    rf = traces["smoke_decode"]
+    rf = cells["smoke_decode"]
     assert rf["dominant"] == "memory"
     assert rf["memory_s"] > max(rf["compute_s"], rf["collective_s"])
     useful = rf["model_flops_global"] / (rf["chips"] * hw.PEAK_FLOPS_BF16)
@@ -312,6 +339,6 @@ def test_local_blocks_equal_jax_devices_indices_map():
                           "specs": {k: str(p.spec) for k, p in plans.items()}}))
     """)
     r = _run(body, {"XLA_FLAGS": "--xla_force_host_platform_device_count=8",
-                    "JAX_PLATFORMS": "cpu"})
+                    "JAX_PLATFORMS": "cpu"}, timeout=JAX_TIMEOUT)
     assert r["bad"] == [], r
     assert "('pod', 'data')" in r["specs"]["batch"]

@@ -233,6 +233,25 @@ def test_run_fast_kernel_backend_matches_reference_pallas(idx):
         assert_same_schedule(got, want, f"{alg} {sched}")
 
 
+def test_run_fast_kernel_backend_matches_reference_pallas_at_16_cores():
+    """K = 16 (the lanes kernel's K on the card): the trace's rates repeated,
+    so equal-rate cores tie exactly and the ties go to the lowest core, as
+    in the reference's Pallas kernel in interpret mode."""
+    trace = ref.synth_fb_trace(200, seed=7)
+    inst = ref.sample_instance(trace, N=16, M=30,
+                               rates=np.resize([10.0, 20.0, 30.0], 16),
+                               delta=8.0, seed=3)
+    assert inst.K == 16
+    p = to_port(inst)
+    for alg, sched in POINTS:
+        want = ref.run_fast(inst, alg, seed=5, scheduling=sched,
+                            backend="pallas")
+        got = port.run_fast(p, alg, seed=5, scheduling=sched,
+                            backend="kernel")
+        assert_same_schedule(got, want, f"{alg} {sched}")
+        port.validate(got)
+
+
 @pytest.mark.parametrize("idx", range(len(INSTANCES)), ids=IDS)
 def test_drift_and_locality_match_reference(idx):
     """``delta_k`` (drifted, and all-nominal, which must normalize to the

@@ -148,7 +148,7 @@ def test_plan_circuits_in_its_own_process():
     proc = subprocess.run(
         [sys.executable, str(EXAMPLES / "torch_plan_circuits.py"), "--device",
          "cpu"], capture_output=True, text=True, env=env, cwd=ROOT,
-        timeout=120)
+        timeout=180)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["blocks"] == 4 and out["coflows"] > 0

@@ -111,8 +111,21 @@ CU_GOOD = """
 """
 BUILD_GOOD = """
     NVCC_FLAGS = ("-O3",)
-    EXTRA_FLAGS = {"coflow_assign": ("-fmad=false",),
-                   "coflow_assign_sm90": ("-fmad=false",)}
+    EXTRA_FLAGS = {"coflow_assign_sm90": ("-fmad=false",),
+                   "coflow_assign_lanes_sm90": ("-fmad=false",)}
+"""
+LANES_PY = """
+    LANES_CHUNK, LANES_STAGES = 512, 4
+    LANES_PER_LANE = {per_lane}
+"""
+LANES_CU = """
+    constexpr int kChunk = 512;
+    constexpr int kStages = 4;
+    constexpr int kMaxPerLane = 8;
+    __global__ void k(float* p, unsigned* w) {{
+      p[0] = fmaxf(p[1], {zero});
+      w[0] = __reduce_min_sync(0xffffffffu, w[1]);
+    }}
 """
 FLASH_PY = """
     import torch
@@ -266,10 +279,22 @@ CASES = {
     "build-fmad": (
         {KERNELS + "_build.py": """
             NVCC_FLAGS = ("-O3", "--use_fast_math")
-            EXTRA_FLAGS = {"coflow_assign": ("-fmad=false",)}
+            EXTRA_FLAGS = {"coflow_assign_sm90": ("-fmad=false",)}
         """},
         [(2, "kernel-fp64"), (2, "kernel-fp64")],
         {KERNELS + "_build.py": BUILD_GOOD}),
+    "lanes-kernel": (
+        {KERNELS + "_build.py": """
+            EXTRA_FLAGS = {"coflow_assign_sm90": ("-fmad=false",)}
+         """,
+         KERNELS + "coflow_assign.py": LANES_PY.format(per_lane=4),
+         KERNELS + "csrc/coflow_assign_lanes_sm90.cu": LANES_CU.format(
+             zero="0.0")},
+        [(1, "kernel-fp64"), (2, "blockspec-shape"), (5, "kernel-fp64")],
+        {KERNELS + "_build.py": BUILD_GOOD,
+         KERNELS + "coflow_assign.py": LANES_PY.format(per_lane=8),
+         KERNELS + "csrc/coflow_assign_lanes_sm90.cu": LANES_CU.format(
+             zero="0.0f")}),
     "chain-tiles": (
         {KERNELS + "coflow_assign.py": "CHAIN_CHUNK, CHAIN_STAGES = 256, 4\n",
          KERNELS + "csrc/coflow_assign_sm90.cu": CU_GOOD.replace(
@@ -389,20 +414,24 @@ def test_port_effects_decorator_attaches_and_validates():
 
 # ------------------------------------------------------------ the port tree
 
-PORT_TREE = (["src/repro_torch", "chip_smoke.py", "scripts/chain_ladder.py"]
+PORT_TREE = (["src/repro_torch", "chip_smoke.py", "scripts/chain_ladder.py",
+              "scripts/lanes_ladder.py"]
              + sorted(str(p.relative_to(REPO)) for pattern in (
                  "tests/test_torch_*.py", "scripts/chip_*.py",
                  "examples/torch_*.py") for p in REPO.glob(pattern)))
+
+
+#: The port's CUDA sources, in the order the linter reads them.
+CUDA_FILES = [f"src/repro_torch/kernels/csrc/{name}.cu" for name in (
+    "coflow_assign_lanes_sm90", "coflow_assign_sm90", "flash_attention",
+    "flash_attention_sm90")]
 
 
 def test_port_tree_lints_clean():
     report = lint_paths([REPO / p for p in PORT_TREE], root=REPO)
     assert report.ok, "\n".join(f.render() for f in report.findings)
     assert report.protocol["declared"] == 15
-    assert report.cuda_files == [
-        f"src/repro_torch/kernels/csrc/{name}.cu" for name in (
-            "coflow_assign", "coflow_assign_sm90", "flash_attention",
-            "flash_attention_sm90")]
+    assert report.cuda_files == CUDA_FILES
     assert {f.rule for f in report.suppressed} == {"float-eq"}
     assert len(report.suppressed) == 8
 
@@ -423,8 +452,9 @@ def test_cli_exit_codes_and_json(tmp_path):
     payload = json.loads(out.read_text())
     assert payload["ok"] is True and payload["finding_count"] == 0
     assert payload["protocol"]["declared"] == 15
-    assert len(payload["cuda_files"]) == 4
-    assert "4 CUDA sources" in ok.stdout and "-> clean" in ok.stdout
+    assert len(payload["cuda_files"]) == len(CUDA_FILES)
+    assert f"{len(CUDA_FILES)} CUDA sources" in ok.stdout \
+        and "-> clean" in ok.stdout
 
     bad_file = tmp_path / "src" / "repro_torch" / "core" / "a.py"
     bad_file.parent.mkdir(parents=True)

@@ -13,7 +13,7 @@ non-zero without printing a result):
   2. build: ``nvcc`` compiles the two assignment kernels for sm_90a,
      ``kernels/csrc/coflow_assign_sm90.cu`` (the chain kernel, K <= 8) and
      ``kernels/csrc/coflow_assign_lanes_sm90.cu`` (the lanes kernel,
-     9 <= K <= 256), one nvcc per source, all four sources of the script
+     K >= 9), one nvcc per source, all four sources of the script
      started together; their ptxas lines (registers, shared memory,
      spills) and the lanes kernel's layout at K=16, N=150 (all shared),
      K=32, N=512 (state and bitmap global) and K=64, N=150 (bitmap global);
@@ -22,10 +22,12 @@ non-zero without printing a result):
      F=5, K=8 at N=150, K=8 at N=512 where the nonzero bitmap lives in
      global memory), on every hazard stream of ``kernels/hazards.py``
      (ports repeated at distances 1..4, runs of one port, exact ties, zero
-     sizes) for K=1..8 at N=8, 150 and 512, and on the first 4,096
+     sizes; ``HAZARD_FLOWS`` flows each) for K=1..8 at N=8, 150 and 512,
+     and on the first 4,096
      pi-ordered flows of the 526-coflow trace instance; the lanes kernel on
      every hazard stream at K=9, 16, 32, 33 and 64 for N=8, 150 and 512,
-     and on those 4,096 flows at K=16;
+     and at K=257 and 512 (the cores' bounds and rates in memory) for N=8
+     and 150, and on those 4,096 flows at K=16;
   4. the main path: ``sample_instance(N=150, M=200)`` of the FB-2010-style
      trace through ``run_fast(backend="kernel")`` (the kernel is opt-in: the
      default backend is the fp64 host one, as in the reference) and
@@ -47,28 +49,31 @@ non-zero without printing a result):
      bound and both kernels' chain floors;
   6. build: ``nvcc`` compiles the two flash-attention kernels,
      ``kernels/csrc/flash_attention_sm90.cu`` (bf16: TMA + wgmma) and
-     ``kernels/csrc/flash_attention.cu`` (fp32: CUDA cores), started
-     beside the phase-2 build, one nvcc per source; their ptxas lines, one
-     per head-dim instance (Dh 64, 128 and 256), and the sm90 kernel's
-     shared memory and kv tile rows at each;
+     ``kernels/csrc/flash_attention_fp32_sm90.cu`` (fp32: a tf32 split
+     pre-pass, then TMA + wgmma in 3xTF32), started beside the phase-2
+     build, one nvcc per source; their ptxas lines, one per head-dim
+     instance (Dh 64, 128 and 256), and each kernel's shared memory and
+     tiles at each;
   7. the flash-attention kernels against their plain PyTorch version on
      the card: the 7 CASES of ``tests/test_kernels_attention.py`` (1e-5
-     fp32 through the SIMT kernel, 2e-2 bf16 through the sm90 kernel),
-     ragged S, the sm90 kernel's edge cases (S around its 128-row tiles,
-     Dh 64 and 128, windows 1/70/128/300 and none, non-causal, GQA groups
-     1/2/8), and the real layer-0 q/k/v of the TinyLlama prefill of phase
-     8 (bf16, 2e-2), with the sm90 kernel's, the plain version's and
-     SDPA's times at that shape, and the SIMT kernel's, the plain
-     version's and SDPA's at the same shape in fp32; then both kernels at
-     the shapes the other families bring (``FLASH_SHAPES`` of
-     ``kernels/hazards.py``): Dh=256 around the sm90 kernel's 64-row kv
-     tiles with windows none, 1, 300 and 2,048, and Sq != Sk both ways,
-     causal (aligned top-left) and not;
+     fp32 through the sm90_fp32 kernel, 2e-2 bf16 through the sm90_bf16
+     kernel), ragged S, the bf16 kernel's edge cases (S around its 128-row
+     tiles, Dh 64 and 128, windows 1/70/128/300 and none, non-causal, GQA
+     groups 1/2/8), and the real layer-0 q/k/v of the TinyLlama prefill
+     of phase 8 (bf16, 2e-2, and widened to fp32, 1e-5), the fp32
+     kernel's pre-pass planes bit-equal to ``tf32_planes_plain`` there and
+     at two Dh=256 shapes, with each kernel's, the plain version's and
+     SDPA's times at that shape in its dtype (the fp32 row beside both
+     its bounds, 3xTF32 on the tensor cores and FFMA, and the pre-pass's
+     own time); then both kernels at the shapes the other families bring
+     (``FLASH_SHAPES`` of ``kernels/hazards.py``): Dh=256 around the
+     kernels' 64-row kv tiles with windows none, 1, 300 and 2,048, and
+     Sq != Sk both ways, causal (aligned top-left) and not;
   8. the serving path at full width: ``DenseLM`` with tinyllama-1.1b's
      config (22 layers, d_model 2048, 32/4 heads, bf16, seeded random
      weights), ``attention_impl="pallas"``, 8 prompts of 2,048 tokens, one
-     ``build_prefill`` step (22 launches of the sm90 kernel, none of the
-     SIMT one) and 16 greedy
+     ``build_prefill`` step (22 launches of the sm90_bf16 kernel, none of
+     the sm90_fp32 one) and 16 greedy
      ``build_decode`` steps; the last decode logits are held to
      ``_forward_train`` on the whole 2,064-token sequence (6e-2), and a
      ``torch.profiler`` trace of one prefill and one decode step gives the
@@ -93,9 +98,10 @@ non-zero without printing a result):
      pool of ``WORKERS`` processes (the chain kernel's launches counted in
      the workers and returned with their rows), weighted CCT normalized to
      ``ours`` and each point's wall time; the four cheapest fp64 points
-     run again serially and must give the pool's rows; then, on the small
-     N=24, M=60 instance, every grid point on the card against the same
-     point on the CPU, bit for bit in choices, t_establish and CCTs;
+     run again serially and must give the pool's rows; then, on a small
+     N=24, M=``M_SMALL_GRID`` instance, every grid point on the card
+     against the same point on the CPU, bit for bit in choices,
+     t_establish and CCTs;
  11. the streaming service at full width: ``FabricManager`` on the card
      over phase 9's online instance (200 coflows, 191,551 flows):
      ``arrival_stream`` -> ``submit``, 16 evenly spaced ``tick``s and
@@ -158,7 +164,7 @@ non-zero without printing a result):
      timed beside the plain version and SDPA at RecurrentGemma's and
      Seamless's (``steady_ms``: at least 10 ms of launches). Then the
      prefill (its time; the sm90 kernel's launches must equal the
-     attention layers, 12, 72, 16, 8, 16 and 0, the SIMT kernel's 0) and
+     attention layers, 12, 72, 16, 8, 16 and 0, the fp32 kernel's 0) and
      16 greedy decode steps (each step's time; no launch), the peak
      ``max_memory_allocated``, and the agreement: the last decode logits
      against ``_forward_train`` of the whole sequence at its last
@@ -298,6 +304,9 @@ sys.path.insert(0, str(ROOT / "src"))
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: The same data sheet: dense TF32 tensor-core peak. The fp32 flash kernel
+#: runs three TF32 products for each fp32 one (3xTF32).
+TF32_OPS_PER_S = 495e12
 #: fp32 operations per flow and core in the kernel's step: 5 for li, 5 for
 #: lj, 2 maxima.
 OPS_PER_FLOW_CORE = 12
@@ -331,6 +340,8 @@ def lanes_dependent_ops(k_cores: int) -> int:
 #: its hazard streams' K (one core a lane, then two); its timed K.
 LANES_K, M_LANES = 16, 48
 LANES_HAZARD_K = (9, 16, 32, 33, 64)
+#: Past its registers (C > 8 cores a lane): the hazard streams' K and N.
+WIDE_HAZARD_K, WIDE_HAZARD_N = (257, 512), (8, 150)
 LANES_TIMED_K = (16, 32)
 
 TRACE_COFLOWS, TRACE_SEED = 526, 2026
@@ -348,7 +359,14 @@ STREAM_TICKS, STREAM_BUDGET_S = 16, 150.0
 #: gates (the trace cut to M_ORACLE coflows at N=150; the legacy per-core
 #: loops rescan every pending flow at every event, so their time grows
 #: faster than the flows).
-ORACLE_BUDGET_S, M_ORACLE = 150.0, 16
+ORACLE_BUDGET_S, M_ORACLE = 150.0, 10
+#: Phase 3: flows of each hazard stream (every kind repeats its hazard
+#: throughout, so half the tests' 300 keeps every kind while halving the
+#: plain version's host time, most of the phase).
+HAZARD_FLOWS = 150
+#: Phase 10: coflows of the small instance whose every grid point runs on
+#: the card and on the CPU (N=24; 44 points, each run twice).
+M_SMALL_GRID = 40
 #: tests/test_kernels_assign.py CASES: (F, K, N, delta).
 CASES = [(64, 3, 16, 8.0), (200, 4, 32, 2.0), (129, 5, 16, 0.5), (32, 2, 8, 0.0)]
 
@@ -456,7 +474,7 @@ def steady_ms(fn, window_ms: float = 10.0, min_reps: int = 5):
 
 
 #: The largest |kernel - plain| each flash kernel showed in this run.
-FA_MAX_ERR = {"sm90_bf16": 0.0, "simt_fp32": 0.0}
+FA_MAX_ERR = {"sm90_bf16": 0.0, "sm90_fp32": 0.0}
 
 
 def fa_vs_plain(label, q, k, v, causal, window, quiet=False, phase=7):
@@ -556,7 +574,7 @@ def main() -> int:
 
     threads = {n: threading.Thread(target=build, args=(n,))
                for n in ("coflow_assign_sm90", "coflow_assign_lanes_sm90",
-                         "flash_attention", "flash_attention_sm90")}
+                         "flash_attention_fp32_sm90", "flash_attention_sm90")}
     for t in threads.values():
         t.start()
 
@@ -577,7 +595,9 @@ def main() -> int:
             if "Compiling entry function" in line:
                 m = re.search(r"ILi(\d)ELb([01])E(?:Lb([01])E)?", line)
                 where = {"0": "global", "1": "shared"}
-                if m and m.group(3) is not None:
+                if "wide_kernel" in line:
+                    instance = "C > 8, cores' bounds and rates in memory"
+                elif m and m.group(3) is not None:
                     instance = (f"C={m.group(1)}, state {where[m.group(2)]}, "
                                 f"bitmap {where[m.group(3)]}")
                 elif m:
@@ -666,21 +686,24 @@ def main() -> int:
     for stream in KINDS:
         for K in range(1, ca.CHAIN_MAX_CORES + 1):
             for N in (8, 150, 512):
-                fi, fj, sz, rates, delta = hazard_stream(stream, K, N)
+                fi, fj, sz, rates, delta = hazard_stream(stream, K, N,
+                                                         n_flows=HAZARD_FLOWS)
                 kernel_vs_plain(f"hazard stream {stream}",
                                 *on_card(fi, fj, sz, rates), delta, N,
                                 quiet=True)
                 n_streams += 1
     log(f"[3] {n_streams} hazard streams ({len(KINDS)} kinds: ports repeated "
         f"at distances 1..4, runs of one port, ties, zero sizes; K=1..8; "
-        f"N=8/150/512; 300 flows each): the chain kernel equals the plain "
+        f"N=8/150/512; {HAZARD_FLOWS} flows each): the chain kernel equals "
+        f"the plain "
         f"version on every one ({time.perf_counter() - t_hz:.1f} s)")
     n_streams = 0
     t_hz = time.perf_counter()
     for stream in KINDS:
         for K in LANES_HAZARD_K:
             for N in (8, 150, 512):
-                fi, fj, sz, rates, delta = hazard_stream(stream, K, N)
+                fi, fj, sz, rates, delta = hazard_stream(stream, K, N,
+                                                         n_flows=HAZARD_FLOWS)
                 kernel_vs_plain(f"hazard stream {stream}",
                                 *on_card(fi, fj, sz, rates), delta, N,
                                 quiet=True)
@@ -690,6 +713,23 @@ def main() -> int:
         f"N=8/150/512, the state global at N=512 and the bitmap at K=64, "
         f"N=150): the lanes kernel equals the plain version on every one "
         f"({time.perf_counter() - t_hz:.1f} s)")
+    n_streams = 0
+    t_hz = time.perf_counter()
+    for stream in KINDS:
+        for K in WIDE_HAZARD_K:
+            for N in WIDE_HAZARD_N:
+                fi, fj, sz, rates, delta = hazard_stream(stream, K, N,
+                                                         n_flows=HAZARD_FLOWS)
+                kernel_vs_plain(f"hazard stream {stream}",
+                                *on_card(fi, fj, sz, rates), delta, N,
+                                quiet=True)
+                n_streams += 1
+    log(f"[3] {n_streams} hazard streams (the {len(KINDS)} kinds; K="
+        f"{'/'.join(map(str, WIDE_HAZARD_K))}: the cores' bounds and rates "
+        f"in memory, one flow at a time; N="
+        f"{'/'.join(map(str, WIDE_HAZARD_N))}, state and bitmap shared, "
+        f"then global): the lanes kernel equals the plain version on every "
+        f"one ({time.perf_counter() - t_hz:.1f} s)")
 
     trace = synth_fb_trace(TRACE_COFLOWS, seed=TRACE_SEED)
     inst526, t_inst526 = sync_time(lambda: sample_instance(
@@ -916,8 +956,7 @@ def main() -> int:
     log(f"[total] the script took {time.perf_counter() - T_SCRIPT:.1f} s of "
         f"its 1,200")
     for row in fa_rows:  # phase 8's launches, 14's, 15's and 18's
-        kernel = "sm90_bf16" if row["name"] == "flash_attention" \
-            else "simt_fp32"
+        kernel = row["kernel"]
         row["launches"] += family_launches[kernel] + train_launches[kernel] \
             + example_launches[kernel]
         row["max_abs_err"] = FA_MAX_ERR[kernel]  # over phases 7, 14, 15
@@ -933,14 +972,14 @@ def main() -> int:
             example_launches))
 
     log(json.dumps({"kernels": [
-        {"name": "coflow_assign",
+        {"name": "coflow_assign", "kernel": "chain_sm90",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_sm90.cu",
          "launches": assign_launches("chain_sm90"),
          "max_abs_err": float(max_err["chain_sm90"]), "ms": ms,
          "plain_ms": 1e3 * plain_main_s, "bound_ms": bound_ms,
          "bound_by": "bytes" if bytes_s >= ops_s else "operations",
          **assign_row},
-        {"name": "coflow_assign_lanes",
+        {"name": "coflow_assign_lanes", "kernel": "lanes_sm90",
          "source": "src/repro_torch/kernels/csrc/coflow_assign_lanes_sm90.cu",
          "launches": assign_launches("lanes_sm90"),
          "max_abs_err": float(max_err["lanes_sm90"]), "ms": lanes_step_ms,
@@ -1143,11 +1182,12 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
         log(f"[10] the grid took {t10:.1f} s, more than 150 s: cut M_GRID")
 
     small_trace = synth_fb_trace(200, seed=7)
-    small = {d: sample_instance(small_trace, N=24, M=60, rates=RATES,
-                                delta=DELTA, seed=3, device=d)
+    small = {d: sample_instance(small_trace, N=24, M=M_SMALL_GRID,
+                                rates=RATES, delta=DELTA, seed=3, device=d)
              for d in (dev, "cpu")}
     span_s = float(run_fast(small["cpu"], backend="kernel").ccts.max())
-    osmall = {d: sample_online_instance(small_trace, N=24, M=60, rates=RATES,
+    osmall = {d: sample_online_instance(small_trace, N=24, M=M_SMALL_GRID,
+                                        rates=RATES,
                                         delta=DELTA, span=span_s, seed=3,
                                         device=d)
               for d in (dev, "cpu")}
@@ -1172,7 +1212,8 @@ def online_phases(torch, dev, kernel_vs_plain, trace, inst, sched):
                                 f"small instance, {mode} {alg} {sched_} "
                                 f"{backend}: GPU {name} differs from CPU")
                     n_points += 1
-    log(f"[10] small instance (N=24, M=60, {cpu.n_flows} flows): all "
+    log(f"[10] small instance (N=24, M={M_SMALL_GRID}, {cpu.n_flows} "
+        f"flows): all "
         f"{n_points} grid points (5 algorithms x their policies x "
         f"{len(BACKENDS)} backends x offline/online) equal on GPU and CPU in "
         f"choices, t_establish and CCTs, and pass validate")
@@ -1875,11 +1916,11 @@ def family_phases(torch, dev):
             f"{1e3 * sum(step_s) / SERVE_STEPS:.2f} ms a step; launches over "
             f"prefill + decode {served}; peak max_memory_allocated "
             f"{peak / 2**30:.2f} GiB")
-        want = {"sm90_bf16": want_launches, "simt_fp32": 0}
+        want = {"sm90_bf16": want_launches, "sm90_fp32": 0}
         if pre != want or served != want:
             raise AssertionError(f"{arch}: the prefill must launch the sm90 "
                                  f"kernel once per attention layer "
-                                 f"({want_launches}) and the SIMT kernel "
+                                 f"({want_launches}) and the fp32 kernel "
                                  f"never, and decode neither; counted {pre} "
                                  f"and {served}")
         if not all(bool(torch.isfinite(lg).all()) for lg in steps) or \
@@ -1956,7 +1997,20 @@ def family_phases(torch, dev):
         torch.cuda.empty_cache()
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=keep)
         m32 = model_class(cfg.family).from_state(cfg32, state)
+        # the fp32 kernel's own path: this fp32 serving run launches it once
+        # per attention layer of its prefill
+        fa.launches_by_kernel = dict.fromkeys(fa.KERNELS, 0)
         lg32 = serve2(m32)
+        got32 = dict(fa.launches_by_kernel)
+        want32 = {"sm90_bf16": 0,
+                  "sm90_fp32": want_launches * keep // cfg.n_layers}
+        log(f"[14] {arch}: the fp32 serving run's flash kernel launches "
+            f"{got32}")
+        if got32 != want32:
+            raise AssertionError(f"{arch}: the fp32 serving run must launch "
+                                 f"sm90_fp32 once per attention layer of its "
+                                 f"prefill; counted {got32}, want {want32}")
+        launches["sm90_fp32"] += got32["sm90_fp32"]
         if moe:
             x32 = model_class("moe").from_state(
                 dataclasses.replace(cfg32, attention_impl="xla"), state)
@@ -1988,7 +2042,8 @@ def family_phases(torch, dev):
             raise AssertionError(f"{arch}: the bf16 main path is {e_main:.4f} "
                                  f"from the fp32 run, more than {limit:.4f}")
         # the new shapes' rows; launches: the sm90 kernel's in the prefill
-        return [{"name": f"flash_attention ({name})", "route": "cuda",
+        return [{"name": f"flash_attention ({name})", "kernel": "sm90_bf16",
+                 "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/"
                            "flash_attention_sm90.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:32",
@@ -2202,7 +2257,7 @@ def train_phases(torch, dev):
         f"(one sm90 launch per layer), then 4 decode steps "
         f"(launches {launches}), logits finite {finite}, shape "
         f"{tuple(outs[-1].shape)}")
-    if prefill_launches != {"sm90_bf16": mid.n_layers, "simt_fp32": 0} or \
+    if prefill_launches != {"sm90_bf16": mid.n_layers, "sm90_fp32": 0} or \
             launches != prefill_launches or not finite or \
             tuple(outs[-1].shape) != (2, 1, mid.vocab):
         raise AssertionError("15c: serving the trained model failed")
@@ -2274,7 +2329,7 @@ def device_time_by_kind(torch, fn):
 
 def serve_phases(torch, dev, built):
     """Phases 6-8: the flash-attention kernels and the serving path; the
-    kernel table's rows of the sm90 and the SIMT kernel."""
+    kernel table's rows of the bf16 and the fp32 kernel."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
@@ -2286,7 +2341,7 @@ def serve_phases(torch, dev, built):
     from repro_torch.serve.engine import build_decode, build_prefill
 
     # ---- 6. build -------------------------------------------------------
-    for name in ("flash_attention_sm90", "flash_attention"):
+    for name in ("flash_attention_sm90", "flash_attention_fp32_sm90"):
         log(f"[6] built {name}.cu in {built(name):.2f} s "
             f"({' '.join(_build.nvcc_flags(name))})")
         for line in _build.build_log(name).splitlines():
@@ -2304,6 +2359,19 @@ def serve_phases(torch, dev, built):
     if any(block_k(dh) != fa.TILES["sm90_bf16"][dh][1] for dh in fa.HEAD_DIMS):
         raise AssertionError("the built kernel's kv tile rows differ from "
                              "kernels/flash_attention.py's TILES")
+    lib32 = _build.load("flash_attention_fp32_sm90")
+    smem32, block_q32 = (lib32.flash_attention_fp32_sm90_smem_bytes,
+                         lib32.flash_attention_fp32_sm90_block_q)
+    for fn in (smem32, block_q32):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    log("[6] flash_attention_fp32_sm90.cu dynamic shared memory per CTA and "
+        "q tile rows (64-key kv tiles): " + ", ".join(
+            f"{smem32(dh):,} B and {block_q32(dh)} rows at Dh={dh}"
+            for dh in fa.HEAD_DIMS))
+    if any(block_q32(dh) != fa.TILES["sm90_fp32"][dh][0]
+           for dh in fa.HEAD_DIMS):
+        raise AssertionError("the built fp32 kernel's q tile rows differ "
+                             "from kernels/flash_attention.py's TILES")
 
     # ---- 7. kernel vs plain version on the card ------------------------
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -2322,8 +2390,9 @@ def serve_phases(torch, dev, built):
         f"around its 128-row tiles, Dh 64/128, windows 1/70/128/300/none, "
         f"non-causal, GQA groups 1/2/8): max|kernel - plain| {edge_err:.3e}, "
         f"all within 2e-2")
-    log("[7] block shapes: the kernels' tiles are fixed (128 rows bf16, 64 "
-        "fp32; S need not divide), so there is no block size to vary")
+    log("[7] block shapes: the kernels' tiles are fixed (TILES: 128 or 64 "
+        "q rows, 128 or 64 kv rows; S need not divide), so there is no "
+        "block size to vary")
 
     def qkv2(B, Sq, Sk, H, KVH, Dh, dtype, seed):
         rng = np.random.default_rng(seed)
@@ -2356,9 +2425,35 @@ def serve_phases(torch, dev, built):
         q, k, v = dense_layer0_qkv(model, prompts)
         fa_vs_plain(f"layer-0 q/k/v of the prefill {tuple(q.shape)} / "
                     f"{tuple(k.shape)}", q, k, v, True, None)
+        x32 = tuple(t.float() for t in (q, k, v))
+        fa_vs_plain(f"layer-0 q/k/v of the prefill in fp32 {tuple(q.shape)} "
+                    f"/ {tuple(k.shape)}", *x32, True, None)
+        # the fp32 kernel's pre-pass against its plain version, bit for bit,
+        # at this shape and two of Dh=256 (a ragged Sk; RecurrentGemma's)
+        def kv256(shape):
+            rng = np.random.default_rng(shape[1])
+            return tuple(torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32), device=dev) for _ in range(2))
+
+        for label, (kk, vv) in (
+                ("the layer-0 k/v", x32[1:]),
+                *((f"Dh=256 k/v {shape}", kv256(shape))
+                  for shape in ((2, 129, 1, 256), (8, 4096, 1, 256)))):
+            got = fa.tf32_planes_cuda(kk, vv)
+            want = fa.tf32_planes_plain(kk, vv)
+            n_diff = sum(int((g.view(torch.int32) != w.view(torch.int32))
+                             .sum()) for g, w in zip(got, want))
+            log(f"[7] sm90_fp32 pre-pass on {label}: planes "
+                f"{tuple(got[0].shape)} and {tuple(got[1].shape)}, {n_diff} "
+                f"of {sum(g.numel() for g in got):,} values differ in a bit "
+                f"from tf32_planes_plain")
+            if n_diff:
+                raise AssertionError(f"the fp32 pre-pass != its plain version "
+                                     f"on {label}")
+            del got, want
+        prepass_ms = event_ms(lambda: fa.tf32_planes_cuda(*x32[1:]), 20)
         times = {}
-        for label, x in (("bf16", (q, k, v)),
-                         ("fp32", tuple(t.float() for t in (q, k, v)))):
+        for label, x in (("bf16", (q, k, v)), ("fp32", x32)):
             reps = 5
             fa.flash_attention_cuda(*x)  # warm
             ms = event_ms(lambda: fa.flash_attention_cuda(*x), reps)
@@ -2372,11 +2467,12 @@ def serve_phases(torch, dev, built):
     B, S, H, Dh = q.shape
     flops = 2.0 * B * H * S * S * Dh  # causal: half of QK^T and of PV
     rows = {}
-    for label, peak, kernel in (("bf16", BF16_OPS_PER_S, "sm90_bf16"),
-                                ("fp32", FP32_OPS_PER_S, "simt_fp32")):
+    for label, ops, peak, kernel in (
+            ("bf16", flops, BF16_OPS_PER_S, "sm90_bf16"),
+            ("fp32", 3 * flops, TF32_OPS_PER_S, "sm90_fp32")):
         ms, plain_ms, sdpa_ms, size = times[label]
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * size
-        ops_s, bytes_s = flops / peak, n_bytes / HBM_BYTES_PER_S
+        ops_s, bytes_s = ops / peak, n_bytes / HBM_BYTES_PER_S
         bound_ms = 1e3 * max(ops_s, bytes_s)
         bound_by = "operations" if ops_s >= bytes_s else "bytes"
         log(f"[7] {kernel} at {(B, S, H, k.shape[2], Dh)} {label} causal: "
@@ -2384,8 +2480,16 @@ def serve_phases(torch, dev, built):
             f"one, {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of its "
             f"bound, {ms / sdpa_ms:.2f}x SDPA); plain version {plain_ms:.3f} "
             f"ms; SDPA {sdpa_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{flops:.4e} FLOP at {peak / 1e12:.0f} TFLOP/s, {n_bytes:,} B at "
+            f"{ops:.4e} FLOP at {peak / 1e12:.0f} TFLOP/s, {n_bytes:,} B at "
             f"3.35 TB/s)")
+        if kernel == "sm90_fp32":
+            ffma_ms = 1e3 * max(flops / FP32_OPS_PER_S, bytes_s)
+            log(f"[7] sm90_fp32 beside the FFMA bound of the same work "
+                f"(fp32 on the CUDA cores, {FP32_OPS_PER_S / 1e12:.0f} "
+                f"TFLOP/s): {ffma_ms:.4f} ms, {ffma_ms / ms:.1%} of it "
+                f"reached; its pre-pass alone (K, V -> four tf32 planes, "
+                f"{4 * k.numel() * 4:,} B written) {prepass_ms:.4f} ms of "
+                f"the {ms:.3f} (CUDA events, 20 launches)")
         rows[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": sdpa_ms,
                         "max_abs_err": FA_MAX_ERR[kernel]}
@@ -2416,11 +2520,11 @@ def serve_phases(torch, dev, built):
         f"decode steps: {1e3 * t_decode / SERVE_STEPS:.2f} ms per step "
         f"({1e3 * t_decode / SERVE_STEPS / SERVE_B:.3f} ms per token of the "
         f"batch); launches over prefill + decode: {serve_launches}")
-    want = {"sm90_bf16": cfg.n_layers, "simt_fp32": 0}
+    want = {"sm90_bf16": cfg.n_layers, "sm90_fp32": 0}
     if prefill_launches != want or serve_launches != want \
             or fa.launches != cfg.n_layers:
         raise AssertionError(f"the prefill must launch the sm90 kernel once "
-                             f"per layer ({cfg.n_layers}) and the SIMT kernel "
+                             f"per layer ({cfg.n_layers}) and the fp32 kernel "
                              f"never, and the decode neither; counted "
                              f"{prefill_launches} and {serve_launches}")
     if not all(bool(torch.isfinite(lg).all()) for lg in steps) or \
@@ -2461,12 +2565,12 @@ def serve_phases(torch, dev, built):
         for name, kms, calls in top:
             log(f"[8]   {kms:9.3f} ms  {calls:4d}x  {name}")
 
-    return [{"name": name, "route": "cuda",
+    return [{"name": name, "kernel": kernel, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{fa.KERNELS[kernel][0]}.cu",
              "replaces": "src/repro/kernels/flash_attention.py:32",
              "launches": serve_launches[kernel], **rows[kernel]}
             for name, kernel in (("flash_attention", "sm90_bf16"),
-                                 ("flash_attention_fp32", "simt_fp32"))
+                                 ("flash_attention_fp32", "sm90_fp32"))
             ]
 
 
@@ -3108,10 +3212,11 @@ def example_phases(torch) -> dict:
     if not report.ok:
         raise AssertionError("18a: the port's tree does not lint clean:\n"
                              + "\n".join(f.render() for f in report.findings))
-    if proto["declared"] != 15 or len(report.cuda_files) != 4:
+    # the four kernels' sources and the header the two flash kernels share
+    if proto["declared"] != 15 or len(report.cuda_files) != 5:
         raise AssertionError(f"18a: {proto['declared']} declarations (want "
                              f"15), {len(report.cuda_files)} CUDA sources "
-                             f"(want 4)")
+                             f"(want 5)")
 
     # ---- 18b. the examples, a process each, all at once --------------
     gc.collect()

@@ -7,8 +7,10 @@ coflow_assign_sm90.cu``, ``coflow_assign_lanes_sm90.cu``) and, with
 (``kernels/csrc/coflow_assign.cu``, the K > 8 kernel the lanes kernel
 replaced), through that checkout's own ``kernels`` package loaded under
 another name. On the trace's offline pi-ordered flows (the 200- and the
-526-coflow instances at N=150: F=191,551 and 443,943) at K=3, 16 and 32
-(the rates 10/20/30 repeated, so equal-rate cores tie exactly), it checks
+526-coflow instances at N=150: F=191,551 and 443,943) at K=3, 16 and 32,
+or the K that ``--ks`` names (257 and 512 are the lanes kernel's cores in
+memory; the warp kernel served at most 256), with the rates 10/20/30
+repeated, so equal-rate cores tie exactly, it checks
 that every kernel makes the same choices and times them in turns (warp,
 lanes, lanes, warp; at K=3 the chain kernel too) with CUDA events, the SM
 clock read beside each timing.
@@ -18,6 +20,7 @@ unpacking the earlier commit into a git-ignored directory:
 
     git archive <commit> | tar -x -C scratch_chip/parent
     python3 scripts/chip_lanes.py --parent scratch_chip/parent
+    python3 scripts/chip_lanes.py --ks 16,257,512
 
 It prints one line per timing (ms, ns and cycles a flow), the card's name
 and power limit, and writes the timings to ``chiprun_out/chip_lanes.json``.
@@ -56,6 +59,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked earlier checkout with the warp kernel")
+    ap.add_argument("--ks", default=",".join(map(str, KS)),
+                    help="the cores to time, comma-separated")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "chip_lanes.json")
     args = ap.parse_args()
@@ -92,7 +97,7 @@ def main() -> int:
         _pos, _cid, fi, fj, sz = extract_flows(inst, order_coflows(inst))
         flows = (fi.int(), fj.int(), sz.float())
         n = flows[0].numel()
-        for K in KS:
+        for K in map(int, args.ks.split(",")):
             rates = torch.tensor(np.resize(cs.RATES, K), dtype=torch.float32,
                                  device=dev)
             names = [k for k in ("warp", "chain_sm90", "lanes_sm90")

@@ -85,7 +85,7 @@ class LintReport:
 
 
 def _is_kernel_source(f: Path) -> bool:
-    return f.suffix == ".cu" and f.parent.name == "csrc" \
+    return f.suffix in (".cu", ".cuh") and f.parent.name == "csrc" \
         and f.parent.parent.name == "kernels"
 
 
@@ -107,7 +107,7 @@ def _collect(paths: Iterable[str | Path]) -> list[Path]:
                     continue
                 if f.suffix == ".py" or _is_kernel_source(f):
                     add(f)
-        elif p.suffix in (".py", ".cu"):
+        elif p.suffix in (".py", ".cu", ".cuh"):
             add(p)
     return out
 
@@ -142,7 +142,7 @@ def lint_files(files: Iterable[Path], root: Path | None = None) -> LintReport:
     for path in files:
         n_files += 1
         try:
-            if path.suffix == ".cu":
+            if path.suffix in (".cu", ".cuh"):
                 sources.append(load_cuda(path, root=root))
             else:
                 modules.append(load_module(path, root=root))

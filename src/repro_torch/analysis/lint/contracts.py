@@ -17,14 +17,16 @@ shapes part of the reviewed source instead of tribal knowledge:
 - ``kernel-fp64``     (RL203): inside Pallas kernel bodies (functions
   with ``*_ref`` params under ``kernels/``), no fp64 types and no host
   numpy — the kernels' precision contract says their state is fp32. The
-  port's kernels are CUDA C++ (``kernels/csrc/*.cu``): inside
-  ``__global__`` and ``__device__`` functions, no ``double``, no
-  unsuffixed floating literal (``1.0`` is a double in C++) and no
-  ``__d*`` double intrinsic (comments and literals are not read). The
-  assignment kernels are bit-equal to ``assign_ref`` only when no
-  multiply-add is contracted, so ``kernels/_build.py``'s ``EXTRA_FLAGS``
-  must give ``-fmad=false`` to ``coflow_assign_sm90`` and
-  ``coflow_assign_lanes_sm90``, and nothing may turn it back on.
+  port's kernels are CUDA C++ (``kernels/csrc/*.cu`` and the ``*.cuh``
+  headers they share): inside ``__global__`` and ``__device__``
+  functions, no ``double``, no unsuffixed floating literal (``1.0`` is a
+  double in C++) and no ``__d*`` double intrinsic (comments and literals
+  are not read). The assignment kernels are bit-equal to ``assign_ref``
+  only when no multiply-add is contracted, so ``kernels/_build.py``'s
+  ``EXTRA_FLAGS`` must give ``-fmad=false`` to ``coflow_assign_sm90`` and
+  ``coflow_assign_lanes_sm90``, and nothing may turn it back on (it also
+  gives it to the fp32 attention kernel, ``flash_attention_fp32_sm90``,
+  whose every operation is an explicitly rounded intrinsic besides).
 - ``blockspec-shape`` (RL204): literal ``BlockSpec`` tiles must be
   positive and divide literal ``out_shape`` dims. For the CUDA kernels,
   the Python side and the source must agree on the tiles, and every tile
@@ -35,7 +37,10 @@ shapes part of the reviewed source instead of tribal knowledge:
   of ``csrc/coflow_assign_lanes_sm90.cu``; ``kernels/flash_attention.py``'s
   ``HEAD_DIMS`` are the head dims each of its ``KERNELS`` instantiates
   (``launch<Dh>``), and its ``TILES[kernel][Dh]`` are that source's
-  ``(kBlockQ, block_k(Dh))`` (``kBlockK`` where it has no ``block_k``).
+  ``(kBlockQ, block_k(Dh))``, with ``block_q(Dh)`` where it has one and
+  ``kBlockK`` where it has no ``block_k`` (the bf16 kernel
+  ``flash_attention_sm90.cu``, the fp32 kernel
+  ``flash_attention_fp32_sm90.cu``).
 """
 from __future__ import annotations
 
@@ -724,14 +729,17 @@ def _check_flash_tiles(mod: Module, consts: dict[str, tuple[object, int]],
                 f"launch<Dh> for {tuple(built)}")
         values, funcs = _cuda_constants(src)
         env = {k: v for k, (v, _) in values.items()}
+
+        def tile(fn: str, const: str, dh: int) -> int | None:
+            if fn in funcs:
+                arg, expr = funcs[fn]
+                return _c_eval(expr, {**env, arg: dh})
+            return env.get(const)
+
         for dh in dims:
             got = tiles.get(kernel, {}).get(dh)
-            if "block_k" in funcs:
-                arg, expr = funcs["block_k"]
-                bk = _c_eval(expr, {**env, arg: dh})
-            else:
-                bk = env.get("kBlockK")
-            want = (env.get("kBlockQ"), bk)
+            want = (tile("block_q", "kBlockQ", dh),
+                    tile("block_k", "kBlockK", dh))
             if got is None or tuple(got) != want or min(tuple(got)) <= 0:
                 yield Finding(
                     "blockspec-shape", str(mod.path), t_line, 0,

@@ -31,12 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 #: Flags of one kernel. No FMA contraction where a kernel must round every
 #: operation as the reference does: the two assignment kernels (bit
-#: equality), and the fp32 attention kernel, whose explicit fmaf chains keep
-#: their order under it. The bf16 attention kernel's contract is 2e-2 and
-#: takes no such flag.
+#: equality), and the fp32 attention kernel (its 3xTF32 split is bit-equal
+#: to ``split_tf32_plain``, and its softmax rounds each operation on its
+#: own). The bf16 attention kernel's contract is 2e-2 and takes no such
+#: flag.
 EXTRA_FLAGS = {"coflow_assign_sm90": ("-fmad=false",),
                "coflow_assign_lanes_sm90": ("-fmad=false",),
-               "flash_attention": ("-fmad=false",)}
+               "flash_attention_fp32_sm90": ("-fmad=false",)}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 

@@ -8,10 +8,11 @@ coflow_assign``). One function, in three versions:
     (``csrc/coflow_assign_sm90.cu``, 1 <= K <= 8: the chain of choices in
     registers, the per-core arithmetic spread over a warp's lanes, flows
     streamed by a producer warp) and ``"lanes_sm90"``
-    (``csrc/coflow_assign_lanes_sm90.cu``, 9 <= K <= 256: the same ring and
+    (``csrc/coflow_assign_lanes_sm90.cu``, K >= 9: the same ring and
     pipeline, lane l owning cores [C*l, C*l + C), C = ceil(K/32), and the
-    argmin in a warp reduction and a ballot). The notes in the sources
-    give each design and what bounds it.
+    argmin in a warp reduction and a ballot; past K = 256 the cores'
+    bounds and rates move from registers to memory and the pipeline goes).
+    The notes in the sources give each design and what bounds it.
   - :func:`coflow_assign_plain`, the plain PyTorch version: the same
     sequential fp32 chain in the same operation order, one flow at a time.
     The CPU tests and ``chip_smoke.py`` hold both kernels to it bit for bit.
@@ -30,17 +31,16 @@ import torch
 from . import _build
 
 __all__ = ["coflow_assign_cuda", "coflow_assign_plain", "launches",
-           "launches_by_kernel", "KERNELS", "kernel_for", "MAX_CORES",
-           "CHAIN_MAX_CORES", "SMEM_LIMIT"]
+           "launches_by_kernel", "KERNELS", "kernel_for", "CHAIN_MAX_CORES",
+           "LANES_PER_LANE", "SMEM_LIMIT"]
 
 #: Cores the chain kernel serves: every lane holds all K candidates.
 CHAIN_MAX_CORES = 8
 #: Cores a lane of the lanes kernel holds in registers (``kMaxPerLane``):
 #: some 30 registers a core, so 6 take 240 of the 255 a thread can have and
-#: 7 and 8 spill a little (ptxas, PERF.md).
+#: 7 and 8 spill a little (ptxas, PERF.md). Past 32 lanes of these (K >
+#: 256) a lane keeps its cores' bounds and rates in memory instead.
 LANES_PER_LANE = 8
-#: The most cores the wrapper serves: 32 lanes of LANES_PER_LANE cores.
-MAX_CORES = 32 * LANES_PER_LANE
 #: Shared memory a block may use on Hopper (227 KB, opt-in above 48 KB).
 SMEM_LIMIT = 232_448
 #: Kernel name -> csrc source.
@@ -123,7 +123,9 @@ def _lanes_layout(k_cores: int, n_ports: int) -> tuple[int, int, int, int]:
     global bitmap bytes; 0 where that part is in shared memory).
 
     Shared memory holds the mbarriers, the flow ring (16 B a flow), the
-    choice ring (4 B) and the losing lanes' store slots (20 B a lane), then
+    choice ring (4 B) and the losing lanes' store slots (20 B a lane); past
+    ``LANES_PER_LANE`` cores a lane, the cores' (bound, 1/r) pairs (8 B a
+    core), or where they do not fit, at the end of the global state; then
     the row and col state (``C * 32`` pairs of fp32 load and tau a port
     each) while it fits, then the bitmap (``C`` words a cell) while it fits
     too; what does not fit is a global scratch.
@@ -131,17 +133,17 @@ def _lanes_layout(k_cores: int, n_ports: int) -> tuple[int, int, int, int]:
     c = -(-k_cores // 32)
     shared = (16 * LANES_STAGES + LANES_CHUNK * LANES_STAGES * (16 + 4)
               + 32 * 20)
+    cores = 8 * 32 * c if c > LANES_PER_LANE else 0
     state = 2 * n_ports * 32 * c * 8
     nz = 4 * c * n_ports * n_ports
+    if shared + cores > SMEM_LIMIT:
+        return c, shared, state + cores, nz
+    shared += cores
     if shared + state > SMEM_LIMIT:
         return c, shared, state, nz
     if shared + state + nz > SMEM_LIMIT:
         return c, shared + state, 0, nz
     return c, shared + state + nz, 0, 0
-
-
-#: The most cores each kernel serves.
-_MAX_CORES = {"chain_sm90": CHAIN_MAX_CORES, "lanes_sm90": MAX_CORES}
 
 
 def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
@@ -155,11 +157,11 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
     is ``None`` (``kernel_for(K)``: the chain kernel for K <= 8, the lanes
     kernel above) or a name of ``KERNELS``, so a test can run the lanes
     kernel at K <= 8 beside the chain kernel; ``ops.coflow_assign`` never
-    names one. Raises on anything else, on more cores than the kernel holds
-    in registers (8 for the chain kernel; ``MAX_CORES`` = 256, 8 a lane,
-    for the lanes kernel), when a global scratch cannot be allocated or its
-    word index would pass int32, and when the build or the launch fails.
-    F = 0 returns an empty tensor without a launch.
+    names one. Raises on anything else, on K < 1 and on more than the 8
+    cores the chain kernel holds, when a global scratch cannot be allocated
+    or its word index would pass int32, and when the build or the launch
+    fails. The lanes kernel serves every K >= 9. F = 0 returns an empty
+    tensor without a launch.
     """
     global launches
     k_cores = rates.shape[0]
@@ -167,10 +169,11 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
     if name not in KERNELS:
         raise ValueError(f"kernel must be None or one of {list(KERNELS)}, "
                          f"got {kernel!r}")
-    if not 1 <= k_cores <= _MAX_CORES[name]:
+    if k_cores < 1 or (name == "chain_sm90" and k_cores > CHAIN_MAX_CORES):
         raise ValueError(
-            f"the {name} kernel holds 1 <= K <= {_MAX_CORES[name]} cores in "
-            f"registers, got K={k_cores}")
+            f"the {name} kernel takes 1 <= K"
+            f"{f' <= {CHAIN_MAX_CORES}' if name == 'chain_sm90' else ''} "
+            f"cores, got K={k_cores}")
     tensors = (fi, fj, sizes, rates)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("coflow_assign_cuda needs CUDA tensors")
@@ -192,10 +195,12 @@ def coflow_assign_cuda(fi: torch.Tensor, fj: torch.Tensor,
     else:
         _c, smem, scratch["state"], scratch["nz"] = _lanes_layout(
             k_cores, n_ports)
-        if scratch["nz"] // 4 >= 2 ** 31:
-            raise ValueError(
-                f"K={k_cores}, N={n_ports}: the lanes kernel's bitmap of "
-                f"{scratch['nz']} B has more words than an int32 indexes")
+        for part, word in (("state", 8), ("nz", 4)):
+            if scratch[part] // word >= 2 ** 31:
+                raise ValueError(
+                    f"K={k_cores}, N={n_ports}: the lanes kernel's {part} "
+                    f"scratch of {scratch[part]} B has more words than an "
+                    f"int32 indexes")
     if smem > SMEM_LIMIT:
         raise ValueError(f"K={k_cores}, N={n_ports}: the {name} kernel's "
                          f"state needs {smem} B of shared memory, more than "

@@ -1,5 +1,5 @@
 // Tau-aware greedy cross-core flow assignment (Alg. 1 lines 5-17) for
-// Hopper, 9 <= K <= 256: each lane of one warp owns C = ceil(K/32) cores.
+// Hopper, K >= 9: each lane of one warp owns C = ceil(K/32) cores.
 //
 // Replaces the Pallas TPU kernel `_assign_kernel` in
 // src/repro/kernels/coflow_assign.py (launched by `coflow_assign_fwd`) for
@@ -84,6 +84,18 @@
 // 32 and 205 for the chain kernel at K = 3; some seven times the floor.
 // At K = 64 (C = 2, the bitmap global) about 514 cycles a flow.
 //
+// Past K = 256 (C > kMaxPerLane) a lane's cores no longer fit in its
+// registers, and `coflow_assign_lanes_wide_kernel` takes over: the same
+// CTA, producer, ring, state layout and argmin (a lane's first argmin,
+// then redux.sync, the ballot and the lowest set bit), but no pipeline.
+// Each lane's cores' bound and 1/r_k live in shared memory (8 B a core,
+// 4 KB at K = 512; at the end of the global state scratch where even that
+// does not fit), and for each flow the lane loads and evaluates its C
+// cores in a loop, the winning lane commits (its pairs, its bound, its
+// bit of the cell's word) and a __syncwarp orders the commit before the
+// next flow's loads. No configuration of the repository has more than 16
+// cores, so this path is written to be right, not fast.
+//
 // Numerics, as in the chain kernel and the Pallas kernel: every operation
 // is an explicit round-to-nearest intrinsic and the build passes
 // -fmad=false, with inv_rate = 1/r_k by IEEE division, so the choices are
@@ -100,6 +112,7 @@ constexpr int kRing = kChunk * kStages;
 constexpr int kThreads = 64;     // warp 0: the chain; warp 1: the producer
 constexpr int kWarp = 32;
 constexpr int kMaxPerLane = 8;   // cores a lane holds in registers
+constexpr int kSmemLimit = 232448;  // the shared memory a block may use
 constexpr unsigned kFullMask = 0xffffffffu;
 static_assert((kChunk & (kChunk - 1)) == 0 && (kRing & (kRing - 1)) == 0,
               "ring sizes are powers of two");
@@ -124,10 +137,22 @@ __host__ __device__ inline long long nz_bytes(int c, int n) {
   return 4LL * c * n * n;
 }
 
+// Past kMaxPerLane cores a lane: each core's (bound, 1/r) pair, in shared
+// memory after the slots while it fits, else after the global state.
+__host__ __device__ inline long long cores_bytes(int c) {
+  return c > kMaxPerLane ? 8LL * c * kWarp : 0;
+}
+
+__host__ __device__ inline bool cores_shared(int c) {
+  return kBarBytes + kRingBytes + kOutBytes + kDummyBytes + cores_bytes(c) <=
+         kSmemLimit;
+}
+
 __host__ __device__ inline long long smem_bytes(int c, int n,
                                                 bool state_shared,
                                                 bool nz_shared) {
   return kBarBytes + kRingBytes + kOutBytes + kDummyBytes +
+         (cores_shared(c) ? cores_bytes(c) : 0) +
          (state_shared ? state_bytes(c, n) : 0) +
          (nz_shared ? nz_bytes(c, n) : 0);
 }
@@ -171,6 +196,45 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// The producer warp: flows in, choices out. It packs flow f as one int4
+// (row-state offset, col-state offset, bitmap word offset, size bits) into
+// stage f / kChunk % kStages of the ring, and copies a stage's choices out
+// after its `done` mbarrier.
+__device__ __forceinline__ void produce(const int* __restrict__ fi,
+                                        const int* __restrict__ fj,
+                                        const float* __restrict__ sizes,
+                                        int n_flows, int n_ports, int c_lane,
+                                        int4* ring, const int* out_ring,
+                                        uint32_t full_bar, uint32_t done_bar,
+                                        int* __restrict__ out) {
+  const int lane = threadIdx.x - kWarp;
+  const int plane = c_lane * kWarp;
+  const int n_chunks = (n_flows + kChunk - 1) / kChunk;
+  auto drain = [&](int c) {
+    const int s = c % kStages;
+    mbar_wait(done_bar + 8 * s, (c / kStages) & 1);
+    for (int x = lane; x < kChunk; x += kWarp) {
+      const int f = c * kChunk + x;
+      if (f < n_flows) out[f] = out_ring[s * kChunk + x];
+    }
+  };
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % kStages;
+    if (c >= kStages) drain(c - kStages);  // frees stage s
+    for (int x = lane; x < kChunk; x += kWarp) {
+      const int f = c * kChunk + x;
+      if (f < n_flows) {
+        const int i = fi[f], j = fj[f];
+        ring[s * kChunk + x] = make_int4(i * plane, j * plane,
+                                         (i * n_ports + j) * c_lane,
+                                         __float_as_int(sizes[f]));
+      }
+    }
+    mbar_arrive(full_bar + 8 * s);
+  }
+  for (int c = max(0, n_chunks - kStages); c < n_chunks; ++c) drain(c);
 }
 
 // A flow and, in each lane, its cores' state of the flow's two ports.
@@ -327,31 +391,8 @@ __global__ void __launch_bounds__(kThreads, 1) coflow_assign_lanes_kernel(
 
   const int n_chunks = (n_flows + kChunk - 1) / kChunk;
   if (threadIdx.x >= kWarp) {
-    // ---- producer warp: flows in, choices out ---------------------------
-    const int lane = threadIdx.x - kWarp;
-    auto drain = [&](int c) {
-      const int s = c % kStages;
-      mbar_wait(done_bar + 8 * s, (c / kStages) & 1);
-      for (int x = lane; x < kChunk; x += kWarp) {
-        const int f = c * kChunk + x;
-        if (f < n_flows) out[f] = out_ring[s * kChunk + x];
-      }
-    };
-    for (int c = 0; c < n_chunks; ++c) {
-      const int s = c % kStages;
-      if (c >= kStages) drain(c - kStages);  // frees stage s
-      for (int x = lane; x < kChunk; x += kWarp) {
-        const int f = c * kChunk + x;
-        if (f < n_flows) {
-          const int i = fi[f], j = fj[f];
-          ring[s * kChunk + x] = make_int4(i * plane, j * plane,
-                                           (i * n_ports + j) * C,
-                                           __float_as_int(sizes[f]));
-        }
-      }
-      mbar_arrive(full_bar + 8 * s);
-    }
-    for (int c = max(0, n_chunks - kStages); c < n_chunks; ++c) drain(c);
+    produce(fi, fj, sizes, n_flows, n_ports, C, ring, out_ring, full_bar,
+            done_bar, out);
     return;
   }
 
@@ -591,6 +632,141 @@ __global__ void __launch_bounds__(kThreads, 1) coflow_assign_lanes_kernel(
   }
 }
 
+// C > kMaxPerLane cores a lane (K > 256): the cores' (bound, 1/r) pairs
+// in memory, one flow at a time (see the design note). State and bitmap
+// are in shared memory where the wrapper's layout put them (a null global
+// pointer), else global; the cores' pairs follow the slots while they fit
+// (cores_shared), else the global state.
+__global__ void __launch_bounds__(kThreads, 1) coflow_assign_lanes_wide_kernel(
+    const int* __restrict__ fi, const int* __restrict__ fj,
+    const float* __restrict__ sizes, const float* __restrict__ rates,
+    float delta, int n_flows, int k_cores, int n_ports, int c_lane,
+    float2* state_global, uint32_t* nz_global, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int4* ring = reinterpret_cast<int4*>(smem + kBarBytes);
+  int* out_ring = reinterpret_cast<int*>(smem + kBarBytes + kRingBytes);
+  unsigned char* tail =
+      smem + kBarBytes + kRingBytes + kOutBytes + kDummyBytes;
+  const int plane = c_lane * kWarp;  // (load, tau) pairs a port
+  const bool state_shared = state_global == nullptr;
+  const bool nz_shared = nz_global == nullptr;
+  float2* core = reinterpret_cast<float2*>(tail);  // (bound, 1/r) pairs
+  if (cores_shared(c_lane)) tail += cores_bytes(c_lane);
+  float2* row_s =
+      state_shared ? reinterpret_cast<float2*>(tail) : state_global;
+  float2* col_s = row_s + n_ports * plane;
+  uint32_t* nz = nz_shared ? reinterpret_cast<uint32_t*>(col_s + n_ports * plane)
+                           : nz_global;
+  if (!cores_shared(c_lane)) core = col_s + n_ports * plane;
+  const uint32_t full_bar = smem_u32(bars);            // + 8 * stage
+  const uint32_t done_bar = smem_u32(bars + kStages);  // + 8 * stage
+
+  // Core C*l + c of lane l sits at pair c * 32 + l; padding past K never
+  // wins (its bound is +inf). Shared state is zeroed here, global state by
+  // the caller, and the ring as in the register kernel.
+  for (int x = threadIdx.x; x < plane; x += kThreads) {
+    const int k = c_lane * (x % kWarp) + x / kWarp;
+    const bool owned = k < k_cores;
+    core[x] = make_float2(owned ? 0.0f : INFINITY,
+                          __fdiv_rn(1.0f, owned ? rates[k] : 1.0f));
+  }
+  if (state_shared) {
+    for (int x = threadIdx.x; x < 2 * n_ports * plane; x += kThreads)
+      row_s[x] = make_float2(0.0f, 0.0f);
+  }
+  if (nz_shared) {
+    for (int x = threadIdx.x; x < n_ports * n_ports * c_lane; x += kThreads)
+      nz[x] = 0u;
+  }
+  for (int x = threadIdx.x; x < kRing; x += kThreads)
+    ring[x] = make_int4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, kWarp);
+      mbar_init(done_bar + 8 * s, kWarp);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarp) {
+    produce(fi, fj, sizes, n_flows, n_ports, c_lane, ring, out_ring,
+            full_bar, done_bar, out);
+    return;
+  }
+
+  // ---- consumer warp: the chain, one flow at a time ---------------------
+  int lane;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
+  const uint32_t lane_bit = 1u << lane;
+  const uint32_t lanes_to_mine = lane_bit | (lane_bit - 1u);
+  const int n_chunks = (n_flows + kChunk - 1) / kChunk;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    mbar_wait(full_bar + 8 * (ch % kStages), (ch / kStages) & 1);
+    const int t_end = min(n_flows, (ch + 1) * kChunk);
+    for (int t = ch * kChunk; t < t_end; ++t) {
+      const int4 e = ring[t & (kRing - 1)];
+      const float d = __int_as_float(e.w);
+      // this lane's first argmin over its cores (strict `<`: ties keep the
+      // lower core), with what the winner would commit
+      float best = 0.0f, brld = 0.0f, brt1 = 0.0f, bcld = 0.0f, bct1 = 0.0f;
+      int lc = 0;
+#pragma unroll 8  // the loads of eight cores in flight at once
+      for (int c = 0; c < c_lane; ++c) {
+        const float2 r = row_s[e.x + c * kWarp + lane];
+        const float2 q = col_s[e.y + c * kWarp + lane];
+        const float2 kc = core[c * kWarp + lane];
+        const float fresh = (nz[e.z + c] >> lane) & 1u ? 0.0f : 1.0f;
+        float rld, rt1, cld, ct1;
+        const float cand = fmaxf(kc.x, cost(r.x, r.y, q.x, q.y, d, fresh,
+                                            kc.y, delta, rld, rt1, cld, ct1));
+        if (c == 0 || cand < best) {
+          best = cand;
+          lc = c;
+          brld = rld;
+          brt1 = rt1;
+          bcld = cld;
+          bct1 = ct1;
+        }
+      }
+      const uint32_t bits = __float_as_uint(best);
+      const uint32_t least = __reduce_min_sync(kFullMask, bits);
+      const uint32_t tied = __ballot_sync(kFullMask, bits == least);
+      if ((tied & lanes_to_mine) == lane_bit) {  // this lane's core wins
+        row_s[e.x + lc * kWarp + lane] = make_float2(brld, brt1);
+        col_s[e.y + lc * kWarp + lane] = make_float2(bcld, bct1);
+        core[lc * kWarp + lane].x = best;
+        nz[e.z + lc] |= lane_bit;
+        out_ring[t & (kRing - 1)] = c_lane * lane + lc;
+      }
+      __syncwarp();  // the commit, before any lane loads the next flow
+    }
+    mbar_arrive(done_bar + 8 * (ch % kStages));
+  }
+}
+
+int launch_wide(const int* fi, const int* fj, const float* sizes,
+                const float* rates, float delta, int n_flows, int k_cores,
+                int n_ports, float2* state_global, uint32_t* nz_global,
+                int* out, cudaStream_t stream) {
+  const int c = (k_cores + kWarp - 1) / kWarp;
+  if (state_global == nullptr && nz_global != nullptr) return -2;
+  if (!cores_shared(c) && state_global == nullptr) return -2;
+  const int smem = static_cast<int>(smem_bytes(c, n_ports,
+                                               state_global == nullptr,
+                                               nz_global == nullptr));
+  cudaError_t err = cudaFuncSetAttribute(
+      coflow_assign_lanes_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coflow_assign_lanes_wide_kernel<<<1, kThreads, smem, stream>>>(
+      fi, fj, sizes, rates, delta, n_flows, k_cores, n_ports, c, state_global,
+      nz_global, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int C, bool kStateShared, bool kNzShared>
 int launch(const int* fi, const int* fj, const float* sizes, const float* rates,
            float delta, int n_flows, int k_cores, int n_ports,
@@ -638,20 +814,23 @@ extern "C" int coflow_assign_lanes_smem_bytes(int k_cores, int n_ports,
                                      state_shared != 0, nz_shared != 0));
 }
 
-// Bytes of the global scratch of the state (bitmap = 0) or of the bitmap
+// Bytes of the global scratch of the state (bitmap = 0; past 256 cores it
+// also holds the cores' pairs where shared memory cannot) or of the bitmap
 // (bitmap = 1), where it does not live in shared memory.
 extern "C" long long coflow_assign_lanes_scratch_bytes(int k_cores,
                                                        int n_ports,
                                                        int bitmap) {
   const int c = (k_cores + kWarp - 1) / kWarp;
-  return bitmap ? nz_bytes(c, n_ports) : state_bytes(c, n_ports);
+  if (bitmap) return nz_bytes(c, n_ports);
+  return state_bytes(c, n_ports) + (cores_shared(c) ? 0 : cores_bytes(c));
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError(), -1 for K
-// outside 1..32 * kMaxPerLane, -2 for a bitmap in shared memory beside
-// global state. All pointers are device pointers; `state_global` and
-// `nz_global` are null where that part lives in shared memory, else zeroed
-// buffers of the sizes coflow_assign_lanes_scratch_bytes gives.
+// Launches the kernel on `stream` and returns cudaGetLastError(), -1 for
+// K < 1, -2 for a bitmap in shared memory beside global state (or global
+// cores' pairs without a global state). All pointers are device pointers;
+// `state_global` and `nz_global` are null where that part lives in shared
+// memory, else zeroed buffers of the sizes
+// coflow_assign_lanes_scratch_bytes gives.
 extern "C" int coflow_assign_lanes_launch(const int* fi, const int* fj,
                                           const float* sizes,
                                           const float* rates, float delta,
@@ -659,7 +838,7 @@ extern "C" int coflow_assign_lanes_launch(const int* fi, const int* fj,
                                           int n_ports, float2* state_global,
                                           uint32_t* nz_global, int* out,
                                           cudaStream_t stream) {
-  if (k_cores < 1 || k_cores > kWarp * kMaxPerLane) return -1;
+  if (k_cores < 1) return -1;
   switch ((k_cores + kWarp - 1) / kWarp) {
 #define CASE_C(C)                                                          \
   case C:                                                                  \
@@ -668,7 +847,8 @@ extern "C" int coflow_assign_lanes_launch(const int* fi, const int* fj,
     CASE_C(1) CASE_C(2) CASE_C(3) CASE_C(4) CASE_C(5) CASE_C(6) CASE_C(7)
     CASE_C(8)
 #undef CASE_C
-    default:
-      return -1;
+    default:  // past kMaxPerLane cores a lane
+      return launch_wide(fi, fj, sizes, rates, delta, n_flows, k_cores,
+                         n_ports, state_global, nz_global, out, stream);
   }
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel `_assign_kernel` in
 // src/repro/kernels/coflow_assign.py (launched by `coflow_assign_fwd`), as
-// does the lanes kernel in coflow_assign_lanes_sm90.cu for 9 <= K <= 256.
+// does the lanes kernel in coflow_assign_lanes_sm90.cu for K >= 9.
 // For each flow (i, j, d) in global pi order and every core k it forms
 //   li = (row_load[k,i] + d) * (1/r_k) + (row_tau[k,i] + new) * delta
 //   lj = (col_load[k,j] + d) * (1/r_k) + (col_tau[k,j] + new) * delta

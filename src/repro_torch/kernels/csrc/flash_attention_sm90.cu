@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` in
 // src/repro/kernels/flash_attention.py (launched by `flash_attention_fwd`)
-// for bfloat16 inputs; fp32 inputs go to the SIMT kernel in
-// flash_attention.cu. For every batch row b and query head h it computes
+// for bfloat16 inputs; fp32 inputs go to the 3xTF32 kernel in
+// flash_attention_fp32_sm90.cu. For every batch row b and query head h it
+// computes
 //   o[b, :, h] = softmax(scale * q[b, :, h] . k[b, :, h / group]^T + mask)
 //                . v[b, :, h / group]
 // with positions implicitly 0..Sq-1 for q and 0..Sk-1 for k (Sq and Sk may
@@ -61,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 128;   // q rows per CTA (two warpgroups of 64)
@@ -89,39 +92,6 @@ struct Params {
   int window;  // <= 0: no window
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // One 4-D TMA load of a (64 columns x 1 x rows x 1) box into `dst`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int d0, const MapPos& pos,
@@ -137,44 +107,11 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128B swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-// K-major tile (Q, K): 8-row groups 1024 bytes apart; the leading offset is
-// unused under the swizzle. One k-step of 16 bf16 advances the start by 32 B.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
 // MN-major tile (V as the B of P.V, 64 columns): 8-row groups along K are
 // 1024 bytes apart. Both offsets are set to that stride: with one 64-column
 // chunk per instruction the other offset is never walked.
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 1024, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving register reads or writes across a wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d[0..64) += A(smem, 64 x 16) . B(smem, 16 x 128); scale_d = 0 overwrites d.
@@ -491,32 +428,6 @@ __global__ void __launch_bounds__(kThreads, 1)
               __floats2bfloat162_rn(o[g][4 * j + 2] * inv1, o[g][4 * j + 3] * inv1);
       }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
-// link against libcuda); null if the installed libcuda lacks it.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // A 4-D map over (Dh, then B, S, H in increasing stride) of a bf16 tensor

@@ -8,10 +8,12 @@ flash_attention``). One function, in three versions:
     ``csrc/flash_attention_sm90.cu`` (``"sm90_bf16"``: TMA loads of 128-row
     q tiles and 128-row kv tiles, 64-row at Dh=256, both products on the
     tensor cores with ``wgmma``, fp32 online softmax, P rounded to bf16
-    before P.V), float32 to
-    ``csrc/flash_attention.cu`` (``"simt_fp32"``: fp32 products on the CUDA
-    cores, since fp32 inputs must meet 1e-5 and wgmma has no full-fp32
-    mode). The notes in the sources give each design and what bounds it.
+    before P.V), float32 to ``csrc/flash_attention_fp32_sm90.cu``
+    (``"sm90_fp32"``: both products on the tensor cores in 3xTF32, which
+    keeps the 1e-5 that one TF32 product misses: a pre-pass splits K and
+    V^T into tf32 hi and lo planes, which :func:`tf32_planes_plain`
+    computes in plain PyTorch, then TMA + ``wgmma`` over 64-key tiles).
+    The notes in the sources give each design and what bounds it.
   - :func:`flash_attention_plain`, the plain PyTorch version, the
     counterpart of ``repro.kernels.ref.attention_ref``: K/V heads repeated
     with ``repeat_interleave``, an fp32 einsum, a ``-inf`` masked softmax and
@@ -21,10 +23,10 @@ All take q ``(B, Sq, H, Dh)`` and k, v ``(B, Sk, KVH, Dh)`` with positions
 implicitly 0..Sq-1 and 0..Sk-1, as the Pallas kernel does: Sq == Sk is
 self-attention, Sq != Sk cross-attention (non-causal) or a causal mask
 aligned top-left (``kp <= qp``). They return ``(B, Sq, H, Dh)`` in
-``q.dtype``. A row that sees no key gives 0 in the plain version and the
-sm90 kernel; the SIMT kernel follows the Pallas kernel's finite mask
-there, so such rows (only possible with Sq > Sk and a window) are outside
-the contract.
+``q.dtype``. A row that sees no key (only possible with Sq > Sk and a
+window) gives 0 in all three: the kernels give a masked score's weight 0
+outright, so such a row's softmax sum is 0, and the Pallas kernel's rule
+for l == 0 gives 0.
 ``launches`` counts the kernels' launches and ``launches_by_kernel`` splits
 the count by kernel, so a run can show which kernel served its main path.
 """
@@ -38,25 +40,30 @@ from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
            "launches_by_kernel", "HEAD_DIMS", "TILES", "KERNELS", "kernel_for",
-           "check_tma"]
+           "check_tma", "split_tf32_plain", "tf32_planes_plain",
+           "tf32_planes_cuda", "KEY_ORDER"]
 
 #: Head dims the kernels are compiled for.
 HEAD_DIMS = (64, 128, 256)
 #: Rows of each kernel's (q, kv) tiles at each head dim, as its source fixes
-#: them (``kBlockQ``, and ``block_k(Dh)`` or ``kBlockK``); reprolint's
-#: blockspec-shape rule holds the two equal.
+#: them (``kBlockQ`` or ``block_q(Dh)``, and ``block_k(Dh)`` or
+#: ``kBlockK``); reprolint's blockspec-shape rule holds the two equal.
 TILES = {"sm90_bf16": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
-         "simt_fp32": {64: (64, 64), 128: (64, 64), 256: (64, 64)}}
+         "sm90_fp32": {64: (128, 64), 128: (128, 64), 256: (64, 64)}}
 #: Kernel name -> (csrc source, dtype it takes).
 KERNELS = {"sm90_bf16": ("flash_attention_sm90", torch.bfloat16),
-           "simt_fp32": ("flash_attention", torch.float32)}
+           "sm90_fp32": ("flash_attention_fp32_sm90", torch.float32)}
+#: The order in which the fp32 kernel's V^T planes hold each run of 8 keys:
+#: the order in which a thread's S accumulator holds them (columns 2c and
+#: 2c + 1 of 8 are the k = c and c + 4 of P.V's A registers).
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 launches = 0
 launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_for(dtype: torch.dtype) -> str:
-    """The kernel that takes ``dtype``: ``"sm90_bf16"`` or ``"simt_fp32"``."""
+    """The kernel that takes ``dtype``: ``"sm90_bf16"`` or ``"sm90_fp32"``."""
     for name, (_, dt) in KERNELS.items():
         if dt == dtype:
             return name
@@ -97,6 +104,88 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"H={h} is not a multiple of KVH={k.shape[2]}")
 
 
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to tf32 (10-bit mantissa; nearest, ties away from
+    zero) by integer operations on its fp32 bits: add half of the 13 low
+    bits' unit to the magnitude, then clear them. NaN stays NaN."""
+    bits = (x.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isnan(x), x, bits.view(torch.float32))
+
+
+def split_tf32_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of fp32 ``x`` on any device, as the fp32 kernel
+    makes it (``cvt.rna.tf32.f32``), bit for bit: ``hi = tf32(x)`` and
+    ``lo = tf32(x - hi)`` (``x - hi`` is exact), so ``hi + lo`` is ``x``
+    within 2^-22 of it and both have their 13 low bits zero. ``lo`` is 0
+    where ``x`` is not finite (``hi`` is then ``x``)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"split_tf32_plain takes float32, got {x.dtype}")
+    hi = _rna_tf32(x)
+    lo = torch.where(torch.isfinite(x), _rna_tf32(x - hi), 0.0)
+    return hi, lo
+
+
+def _pad_keys(sk: int) -> int:
+    """Sk rounded up to the fp32 kernel's kv tile: the planes' key extent."""
+    bk = TILES["sm90_fp32"][HEAD_DIMS[0]][1]
+    return -(-sk // bk) * bk
+
+
+def tf32_planes_plain(k: torch.Tensor, v: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel's pre-pass in plain PyTorch: from k, v ``(B, Sk,
+    KVH, Dh)`` fp32, the K planes ``(2, B, KVH, Sk_pad, Dh)`` (hi, lo) and
+    the V^T planes ``(2, B, KVH, Dh, Sk_pad)``, Sk_pad = Sk rounded up to
+    the kv tile, zero past Sk, each run of 8 keys of V^T in
+    :data:`KEY_ORDER`."""
+    b, sk, kvh, dh = k.shape
+    pad = _pad_keys(sk)
+    kt = k.new_zeros((b, kvh, pad, dh), dtype=torch.float32)
+    kt[:, :, :sk] = k.permute(0, 2, 1, 3)
+    vt = v.new_zeros((b, kvh, dh, pad), dtype=torch.float32)
+    vt[..., :sk] = v.permute(0, 2, 3, 1)
+    order = torch.arange(pad, device=v.device).view(-1, 8)[
+        :, list(KEY_ORDER)].reshape(-1)
+    return torch.stack(split_tf32_plain(kt)), torch.stack(
+        split_tf32_plain(vt[..., order]))
+
+
+def tf32_planes_cuda(k: torch.Tensor, v: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel's pre-pass alone, on the card: what
+    :func:`tf32_planes_plain` computes, from CUDA fp32 k, v of any strides.
+    A comparison's launch: it is not counted in ``launches``."""
+    if k.ndim != 4 or v.shape != k.shape or not (k.is_cuda and v.is_cuda) \
+            or (k.dtype, v.dtype) != (torch.float32, torch.float32):
+        raise ValueError("tf32_planes_cuda takes CUDA float32 k, v of one "
+                         "shape (B, Sk, KVH, Dh)")
+    b, sk, kvh, dh = k.shape
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for Dh in {HEAD_DIMS}, got "
+                         f"Dh={dh}")
+    pad = _pad_keys(sk)
+    kp = torch.empty((2, b, kvh, pad, dh), dtype=torch.float32,
+                     device=k.device)
+    vp = torch.empty((2, b, kvh, dh, pad), dtype=torch.float32,
+                     device=k.device)
+    if kp.numel() == 0:
+        return kp, vp
+    source = KERNELS["sm90_fp32"][0]
+    fn = getattr(_build.load(source), f"{source}_split")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_longlong)] \
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    strides = (ctypes.c_longlong * 8)(*k.stride(), *v.stride())
+    with torch.cuda.device(k.device):
+        err = fn(k.data_ptr(), v.data_ptr(), strides, kp.data_ptr(),
+                 vp.data_ptr(), b, sk, kvh, dh,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention sm90_fp32 pre-pass launch "
+                           f"failed: CUDA error {err}")
+    return kp, vp
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           softmax_scale: float | None = None) -> torch.Tensor:
@@ -130,12 +219,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel for ``q.dtype`` on the current stream.
 
     Takes q ``(B, Sq, H, Dh)`` and k, v ``(B, Sk, KVH, Dh)`` on one CUDA
-    device, all bfloat16 (the sm90 kernel, whose strides must satisfy
-    :func:`check_tma`) or all float32 (the SIMT kernel, any strides), with
+    device, all bfloat16 (the bf16 kernel, whose strides must satisfy
+    :func:`check_tma`) or all float32 (the 3xTF32 kernel, any strides), with
     Dh in :data:`HEAD_DIMS`, and returns ``(B, Sq, H, Dh)`` in their dtype.
-    The strides are passed to the kernel; nothing is copied. Raises on
-    anything else and when the launch fails. Sq = 0 returns an empty tensor
-    without a launch, and so does Sk = 0 (zeros: no row sees a key).
+    The strides are passed to the kernel; nothing is copied (the fp32
+    kernel's pre-pass writes K and V^T split into tf32 planes, which this
+    wrapper allocates). Raises on anything else and when the launch fails.
+    Sq = 0 returns an empty tensor without a launch, and so does Sk = 0
+    (zeros: no row sees a key).
     """
     global launches
     _check_shapes(q, k, v)
@@ -166,17 +257,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.zero_()
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
+    planes = ()  # the fp32 kernel's K and V^T planes (tf32_planes_plain)
+    if kernel == "sm90_fp32":
+        pad = _pad_keys(sk)
+        if 2 * b * k.shape[2] * max(pad, dh) >= 2 ** 31:
+            raise ValueError(f"B={b}, KVH={k.shape[2]}, Sk={sk}: the fp32 "
+                             f"kernel's planes have more rows than a TMA "
+                             f"coordinate (int32) reaches")
+        planes = tuple(torch.empty(shape, dtype=torch.float32,
+                                   device=q.device) for shape in (
+            (2, b, k.shape[2], pad, dh), (2, b, k.shape[2], dh, pad)))
     source = KERNELS[kernel][0]
     fn = getattr(_build.load(source), f"{source}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
-        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p]
+        + [ctypes.c_void_p] * len(planes) + [ctypes.c_int] * 6 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 strides, b, sq, sk, h, k.shape[2], dh, float(scale),
-                 int(causal),
+                 strides, *(t.data_ptr() for t in planes), b, sq, sk, h,
+                 k.shape[2], dh, float(scale), int(causal),
                  0 if window is None else int(window), stream)
     if err != 0:
         what = {-2: "libcuda offers no cuTensorMapEncodeTiled"}.get(

@@ -202,44 +202,49 @@ def test_routing_and_kernel_choice():
 
 
 def test_lanes_kernel_serves_every_k_above_eight():
-    """Every K from 9 to MAX_CORES (32 lanes of 8 cores) is the lanes
-    kernel's; past that the wrapper names the registers a lane holds, before
-    it looks at the tensors."""
-    assert {ca.kernel_for(k) for k in range(9, ca.MAX_CORES + 1)} == {
-        "lanes_sm90"}
-    assert ca.MAX_CORES == 32 * ca.LANES_PER_LANE == 256
+    """Every K from 9 up is the lanes kernel's: in registers up to 32 lanes
+    of LANES_PER_LANE cores (256), in memory past that (257, 512, 1024).
+    Each K passes the wrapper's checks of K and reaches the one that the
+    tensors lie on the card; K < 1 does not."""
+    assert ca.LANES_PER_LANE == 8
+    assert {ca.kernel_for(k) for k in range(9, 1025)} == {"lanes_sm90"}
     f = torch.zeros(4, dtype=torch.int32)
     sz = torch.ones(4)
-    for k in (33, 64, 100, ca.MAX_CORES):  # past the lanes: to the CPU check
+    for k in (33, 64, 100, 256, 257, 512, 1024):
         with pytest.raises(ValueError, match="CUDA tensors"):
             ca.coflow_assign_cuda(f, f, sz, torch.ones(k), 1.0, n_ports=4)
-    with pytest.raises(ValueError, match="K <= 256 cores in registers"):
-        ca.coflow_assign_cuda(f, f, sz, torch.ones(ca.MAX_CORES + 1), 1.0,
-                              n_ports=4)
+    with pytest.raises(ValueError, match="1 <= K"):
+        ca.coflow_assign_cuda(f, f, sz, torch.ones(0), 1.0, n_ports=4)
 
 
 # (K, N, state in shared, bitmap in shared): C = 1 at N = 150 holds both;
 # the state of N = 512 goes global, and so does the bitmap with it; at
 # K = 64 (C = 2), N = 150 the state stays and the bitmap goes; C = 8 at
-# N = 8 holds both.
+# N = 8 holds both. Past 256 cores (C = 9, 16, 32) the cores' pairs take
+# shared memory first: beside both at N = 8, beside the state alone at
+# K = 1024, N = 11, beside neither at N = 150.
 LANES_LAYOUTS = [(9, 8, True, True), (16, 150, True, True),
                  (32, 150, True, True), (32, 512, False, False),
                  (33, 150, True, False), (64, 150, True, False),
                  (100, 24, True, True), (256, 8, True, True),
-                 (256, 150, False, False)]
+                 (256, 150, False, False), (257, 8, True, True),
+                 (257, 150, False, False), (512, 8, True, True),
+                 (1024, 11, True, False), (1024, 150, False, False)]
 
 
 @pytest.mark.parametrize("K, N, state_shared, nz_shared", LANES_LAYOUTS)
 def test_lanes_kernel_layout(K, N, state_shared, nz_shared):
     """The lanes kernel's shared and global bytes, reckoned by hand: the
     ring's 4 stages of 512 flows at 16 B in and 4 B out, 8 mbarriers of
-    8 B and 32 lanes' slots of two (load, tau) pairs and a choice, row and
-    col state of C planes of 32 (load, tau) fp32 pairs a port, and C 32-bit
-    words a cell of bitmap; the state goes to shared memory first, the
-    bitmap after it, each while the block's 227 KB hold it."""
+    8 B and 32 lanes' slots of two (load, tau) pairs and a choice; past
+    8 cores a lane, a (bound, 1/r) fp32 pair a core; row and col state of
+    C planes of 32 (load, tau) fp32 pairs a port, and C 32-bit words a
+    cell of bitmap; the state goes to shared memory first, the bitmap after
+    it, each while the block's 227 KB hold it."""
     c, smem, state_global, nz_global = ca._lanes_layout(K, N)
     assert c == -(-K // 32) and 32 * (c - 1) < K <= 32 * c
     ring = 4 * 512 * (16 + 4) + 8 * 8 + 32 * (8 + 8 + 4)
+    ring += 32 * c * (4 + 4) if c > ca.LANES_PER_LANE else 0
     state = 2 * N * (32 * c) * (4 + 4)
     bitmap = N * N * c * 4
     assert smem == ring + (state if state_shared else 0) + (
@@ -252,11 +257,14 @@ def test_lanes_kernel_layout(K, N, state_shared, nz_shared):
 
 
 # The lanes kernel's cores: one a lane (9, 16, 32), two (33, 64, the
-# second lane of core 32 alone at K = 33), four (100: lanes 25-31 padding).
-# Every K meets exact ties, and one more hazard kind each.
+# second lane of core 32 alone at K = 33), four (100: lanes 25-31 padding),
+# then past its registers, nine (257: core 256 alone on lane 28's ninth;
+# 300: lanes 30-31 padding). Every K meets exact ties, and one more hazard
+# kind each.
 LANES_HAZARDS = [(K, kind, N) for K, other, N in (
     (9, "cell@1", 8), (16, "col@2", 24), (32, "mixed", 12),
-    (33, "row@3", 24), (64, "cell@3", 8), (100, "zeros", 24))
+    (33, "row@3", 24), (64, "cell@3", 8), (100, "zeros", 24),
+    (257, "cell@2", 8), (300, "mixed", 12))
     for kind in ("ties", other)]
 
 

@@ -5,9 +5,11 @@ port runs on the CPU, and what the CUDA kernel is held to on the card) is
 compared with the Pallas kernel ``flash_attention_fwd`` in interpret mode
 and with ``attention_ref``, on the CASES of ``test_kernels_attention.py``:
 1e-5 in fp32 (sums in another order), 2e-2 in bf16 (the output's rounding).
-A test-local emulation of the bf16 CUDA kernel's rounding (which cannot
-run here) is held to the same references, and the wrapper's pure-Python
-parts (the kernel chosen by dtype, the TMA stride check, the build key)
+Test-local emulations of the two CUDA kernels' rounding (which cannot run
+here: the bf16 kernel's, and the fp32 kernel's 3xTF32 products over
+64-key tiles) are held to the same references, and the wrapper's
+pure-Python parts (the kernel chosen by dtype, the tf32 split and the
+pre-pass's planes in plain PyTorch, the TMA stride check, the build key)
 are tested on CPU tensors. ``attend_xla``, the norms, RoPE and the cache are
 compared with ``repro.models`` on the same numpy inputs. Run with
 ``REPRO_PALLAS_INTERPRET=1`` as the JAX suite is (off a TPU the Pallas
@@ -253,8 +255,219 @@ def test_bf16_kernel_numerics_meet_the_reference_contract(case):
                                    rtol=2e-2)
 
 
+# ---------------------------------------------------------------------------
+# The fp32 kernel's numerics: the 3xTF32 split, its planes, its products
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna_numpy(x):
+    """Round fp32 ``x`` to tf32 (10 mantissa bits), nearest with ties away
+    from zero, in fp64 arithmetic: |x| to a whole number of its binade's
+    tf32 units (2^(e - 10), or 2^-136 among the subnormals), half away.
+    Independent of the kernel's and the plain version's bit operations."""
+    x64 = x.astype(np.float64)
+    out = x64.copy()
+    finite = np.isfinite(x64) & (x64 != 0)
+    mag = np.abs(x64[finite])
+    _, e = np.frexp(mag)  # mag = m * 2^e, 0.5 <= m < 1
+    unit = np.ldexp(1.0, np.maximum(e - 1, -126) - 10)
+    out[finite] = np.sign(x64[finite]) * np.floor(mag / unit + 0.5) * unit
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def _split_inputs(kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == "normal":
+        return rng.standard_normal(4096).astype(np.float32)
+    if kind == "wide":  # every binade of normal fp32
+        return (rng.standard_normal(4096) * 2.0 ** rng.integers(
+            -120, 120, 4096)).astype(np.float32)
+    if kind == "ties":  # the 13 low bits exactly half a unit: away from 0
+        bits = (rng.integers(0x00800000, 0x7F000000, 2048, dtype=np.int64)
+                & ~0x1FFF) | 0x1000
+        x = bits.astype(np.uint32).view(np.float32)
+        return np.concatenate([x, -x])
+    if kind == "subnormal":
+        bits = rng.integers(1, 0x00800000, 4096, dtype=np.int64)
+        x = bits.astype(np.uint32).view(np.float32)
+        return np.concatenate([x, -x, np.float32([0.0, -0.0])])
+    if kind == "top":  # near FLT_MAX: rounding up may overflow to inf
+        bits = rng.integers(0x7F7F0000, 0x7F800000, 2048, dtype=np.int64)
+        return bits.astype(np.uint32).view(np.float32)
+    return np.float32([np.inf, -np.inf, np.nan, 1.0, -0.0])  # special
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide", "ties", "subnormal",
+                                  "top", "special"])
+def test_split_tf32_plain_matches_rna_and_sums_to_x(kind):
+    """hi = tf32(x) and lo = tf32(x - hi): both with their 13 low bits
+    zero, hi bit for bit the fp64 emulation of round-to-nearest-away,
+    lo that of x - hi, and hi + lo equal to x within 2^-22 of |x| (within
+    half the tf32 unit of the subnormals, 2^-137, where x - hi is one);
+    ±0, subnormals and overflow to ±inf round like any value; ±inf and NaN
+    give hi = x (NaN stays NaN) and lo = 0."""
+    x = _split_inputs(kind)
+    hi, lo = (t.numpy() for t in fa.split_tf32_plain(torch.from_numpy(x)))
+    for part in (hi, lo):
+        bits = part.view(np.uint32)
+        finite = np.isfinite(part)
+        assert not np.any(bits[finite] & 0x1FFF)
+    finite = np.isfinite(x)
+    np.testing.assert_array_equal(hi[finite].view(np.uint32),
+                                  _tf32_rna_numpy(x[finite]).view(np.uint32))
+    ok = finite & np.isfinite(hi)
+    rest = (x[ok] - hi[ok]).astype(np.float32)
+    np.testing.assert_array_equal(lo[ok].view(np.uint32),
+                                  _tf32_rna_numpy(rest).view(np.uint32))
+    err = np.abs(hi[ok].astype(np.float64) + lo[ok] - x[ok])
+    assert np.all(err <= np.maximum(
+        2.0 ** -22 * np.abs(x[ok].astype(np.float64)), 2.0 ** -137))
+    if kind == "ties":
+        assert np.all(np.abs(hi) > np.abs(x))
+    if kind == "special":
+        np.testing.assert_array_equal(hi[:2], x[:2])
+        assert np.isnan(hi[2]) and np.all(lo[:3] == 0)
+        assert hi[4].view(np.uint32) == np.float32(-0.0).view(np.uint32)
+    if kind == "top":
+        assert np.isinf(hi).any() and np.isfinite(hi).any()
+
+
+def test_split_tf32_plain_takes_float32_only():
+    with pytest.raises(ValueError, match="float32"):
+        fa.split_tf32_plain(torch.zeros(3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("sk", [1, 64, 100])
+def test_tf32_planes_plain_lay_out_k_and_v_as_the_kernel_reads_them(sk):
+    """K's planes (2, B, KVH, Sk_pad, Dh) and V^T's (2, B, KVH, Dh, Sk_pad),
+    Sk_pad the keys rounded up to the 64-key tile, zero past Sk; each run of
+    8 keys of V^T in KEY_ORDER; hi + lo the values within 2^-22."""
+    rng = np.random.default_rng(sk)
+    k = torch.from_numpy(rng.standard_normal((2, sk, 3, 64)).astype(
+        np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, sk, 3, 64)).astype(
+        np.float32))
+    kp, vp = fa.tf32_planes_plain(k, v)
+    pad = -(-sk // 64) * 64
+    assert kp.shape == (2, 2, 3, pad, 64) and vp.shape == (2, 2, 3, 64, pad)
+    assert fa.TILES["sm90_fp32"][64][1] == 64
+    np.testing.assert_allclose((kp[0] + kp[1])[:, :, :sk].numpy(),
+                               k.permute(0, 2, 1, 3).numpy(), rtol=2e-7)
+    order = [8 * (p // 8) + fa.KEY_ORDER[p % 8] for p in range(pad)]
+    back = torch.zeros_like(vp[0])
+    back[..., order] = vp[0] + vp[1]  # V^T's keys in order again
+    assert not kp[:, :, :, sk:].any() and not back[..., sk:].any()
+    np.testing.assert_allclose(back[..., :sk].numpy(),
+                               v.permute(0, 2, 3, 1).numpy(), rtol=2e-7)
+    hi, lo = fa.split_tf32_plain(v.permute(0, 2, 3, 1).contiguous())
+    first = [p for p in range(pad) if order[p] < sk]
+    assert torch.equal(vp[0][..., first], hi[..., [order[p] for p in first]])
+    assert torch.equal(vp[1][..., first], lo[..., [order[p] for p in first]])
+
+
+#: The reference's finite mask value, as the fp32 kernel uses it.
+NEG_INF = np.float32(-0.7 * np.finfo(np.float32).max)
+
+
+def _mm3(a, b, eq):
+    """A 3xTF32 product: the tf32 splits of a and b, their three products
+    summed in fp32, the small ones first (each tf32 product is exact in
+    fp32)."""
+    (ah, al), (bh, bl) = fa.split_tf32_plain(a), fa.split_tf32_plain(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def _sm90_fp32_emulation(q, k, v, *, causal, window, block=64):
+    """The rounding of ``csrc/flash_attention_fp32_sm90.cu``, in torch on
+    the CPU: q times the scale in fp32, then S = Q.K^T in 3xTF32; over kv
+    tiles of ``block`` keys the fp32 online softmax with exp, masked scores
+    at the finite NEG_INF and their weights 0 outright; P split again for
+    a 3xTF32 P.V; O / l, 0 where l == 0."""
+    _, sq, h, dh = q.shape
+    sk = k.shape[1]
+    rep = h // k.shape[2]
+    qs = q.float() * np.float32(dh ** -0.5)
+    kf = k.float().repeat_interleave(rep, 2)
+    vf = v.float().repeat_interleave(rep, 2)
+    logits = _mm3(qs, kf, "bqhd,bkhd->bhqk")
+    qp, kp = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    logits = logits.masked_fill(~mask, float(NEG_INF))
+    m = torch.full(logits.shape[:3], float(NEG_INF))
+    l = torch.zeros(logits.shape[:3])
+    acc = torch.zeros(logits.shape[:3] + (dh,))
+    for k0 in range(0, sk, block):
+        st = logits[..., k0:k0 + block]
+        mn = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - mn)
+        p = torch.where(mask[:, k0:k0 + block],
+                        torch.exp(st - mn[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm3(
+            p, vf[:, k0:k0 + block].contiguous(), "bhqk,bkhd->bhqd")
+        m = mn
+    out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    return out.transpose(1, 2).contiguous()
+
+
+FP32_CASES = [c[:7] + (c[8], c[8]) for c in CASES if c[7] == "float32"]
+FP32_CASES += [(c[0], c[1], c[3], c[4], c[5], c[6], c[7], c[9], c[10],
+                c[2]) for c in NEW_SHAPES if c[8] == "float32"]
+
+
+@pytest.mark.parametrize("case", FP32_CASES, ids=[str(c) for c in FP32_CASES])
+def test_fp32_kernel_numerics_meet_the_reference_contract(case):
+    """3xTF32 products over 64-key tiles meet the fp32 contract (1e-5) of
+    the Pallas kernel and ``attention_ref``, on CASES' and NEW_SHAPES' fp32
+    cases; one TF32 product would not (the emulation with lo = 0 misses)."""
+    B, S, H, KVH, Dh, causal, window, bq, bk = case[:9]
+    Sk = case[9] if len(case) > 9 else S
+    seed = S * H + Dh if len(case) == 9 else S * 7 + Sk
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _qkv(seed, B, S, H, KVH, Dh, Sk=Sk), "float32")
+    got = _sm90_fp32_emulation(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, Dh)
+    kern = flash_attention_fwd(jq, jk, jv, causal=causal, window=window,
+                               block_q=bq, block_k=bk, interpret=True)
+    ref = attention_ref(jq, jk, jv, causal=causal, window=window)
+    for want in (kern, ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_fp32_kernel_numerics_need_the_three_products():
+    """At the first fp32 case, one TF32 product (S and P.V from the hi
+    planes alone) lands outside 1e-5 of ``attention_ref``: the 3xTF32
+    split is what keeps the contract."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(4 * 128 + 64, 2, 128, 4, 4, 64),
+                                       "float32")
+    hi = [fa.split_tf32_plain(t)[0] for t in (tq, tk, tv)]
+    one = fa.flash_attention_plain(*hi, causal=True)
+    ref = _f32(attention_ref(jq, jk, jv, causal=True))
+    assert not np.allclose(_f32(one), ref, atol=1e-5, rtol=1e-5)
+    three = _sm90_fp32_emulation(tq, tk, tv, causal=True, window=None)
+    np.testing.assert_allclose(_f32(three), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_fp32_kernel_numerics_give_zero_for_a_row_that_sees_no_key():
+    """The input of the test above: rows that see no key give 0 in the fp32
+    kernel's emulation too (each masked weight is 0, so l == 0), and the
+    rest agree with the plain version."""
+    _, (tq, tk, tv) = _both(_qkv(2, 1, 40, 2, 2, 64, Sk=8), "float32")
+    got = _sm90_fp32_emulation(tq, tk, tv, causal=True, window=4)
+    want = fa.flash_attention_plain(tq, tk, tv, causal=True, window=4)
+    assert torch.equal(got[:, 11:], torch.zeros_like(got[:, 11:]))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("dtype, kernel", [
-    (torch.bfloat16, "sm90_bf16"), (torch.float32, "simt_fp32")])
+    (torch.bfloat16, "sm90_bf16"), (torch.float32, "sm90_fp32")])
 def test_cuda_wrapper_picks_the_kernel_by_dtype(dtype, kernel):
     assert fa.kernel_for(dtype) == kernel
     source, taken = fa.KERNELS[kernel]
@@ -336,7 +549,7 @@ def test_build_key_covers_every_included_header(tmp_path, monkeypatch):
 def test_build_flags_are_per_source():
     assert "-fmad=false" in _build.nvcc_flags("coflow_assign_sm90")
     assert "-fmad=false" in _build.nvcc_flags("coflow_assign_lanes_sm90")
-    assert "-fmad=false" in _build.nvcc_flags("flash_attention")
+    assert "-fmad=false" in _build.nvcc_flags("flash_attention_fp32_sm90")
     assert "-fmad=false" not in _build.nvcc_flags("flash_attention_sm90")
     assert "sm_90a" in " ".join(_build.nvcc_flags("flash_attention_sm90"))
 

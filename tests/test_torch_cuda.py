@@ -80,9 +80,14 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
     got = ca.coflow_assign_cuda(fi, fj, sz, rates, 1.0, n_ports=8)
     assert torch.equal(got, ca.coflow_assign_plain(fi, fj, sz, rates, 1.0,
                                                    n_ports=8))
-    fi, fj, sz, rates = _flows(dev, 10, ca.MAX_CORES + 1, 8, seed=0)
-    with pytest.raises(ValueError, match="K <= 256"):
-        ca.coflow_assign_cuda(fi, fj, sz, rates, 1.0, n_ports=8)
+    # past 256 cores (8 a lane in registers) the lanes kernel keeps the
+    # cores' bounds and rates in memory: it serves them, equal to the plain
+    # version
+    for K in (257, 300, 512):
+        fi, fj, sz, rates = _flows(dev, 200, K, 8, seed=K)
+        got = ca.coflow_assign_cuda(fi, fj, sz, rates, 1.0, n_ports=8)
+        assert torch.equal(got, ca.coflow_assign_plain(fi, fj, sz, rates,
+                                                       1.0, n_ports=8)), K
     fi, fj, sz, rates = _flows(dev, 10, 3, 8, seed=0)
     with pytest.raises(ValueError, match="int32"):
         ca.coflow_assign_cuda(fi.long(), fj, sz, rates, 1.0, n_ports=8)
@@ -150,6 +155,25 @@ def test_lanes_kernel_equals_plain_on_hazard_streams(dev, kind, n_ports):
         assert torch.equal(got, want), (kind, K, n_ports)
 
 
+@pytest.mark.parametrize("n_ports", [8, 150])
+@pytest.mark.parametrize("kind", KINDS)
+def test_wide_lanes_kernel_equals_plain_on_hazard_streams(dev, kind, n_ports):
+    """Past 256 cores (nine a lane and more) the lanes kernel evaluates its
+    cores from memory, one flow at a time: held to the plain version on
+    every hazard stream at K = 257 and 512, with state and bitmap in shared
+    memory (N = 8) and global (N = 150)."""
+    for K in (257, 512):
+        fi, fj, sz, rates, delta = hazard_stream(kind, K, n_ports)
+        args = _on(dev, fi, fj, sz, rates)
+        before = dict(ca.launches_by_kernel)
+        got = ca.coflow_assign_cuda(*args, delta, n_ports=n_ports)
+        torch.cuda.synchronize()
+        assert ca.launches_by_kernel == {
+            **before, "lanes_sm90": before["lanes_sm90"] + 1}
+        want = ca.coflow_assign_plain(*args, delta, n_ports=n_ports)
+        assert torch.equal(got, want), (kind, K, n_ports)
+
+
 def _rates(K, dev):
     """The trace's rates (10, 20, 30) repeated to K cores."""
     return torch.tensor(np.resize([10.0, 20.0, 30.0], K), dtype=torch.float32,
@@ -206,8 +230,8 @@ def test_lanes_kernel_layout_agrees_with_the_source(dev):
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
     scratch = lib.coflow_assign_lanes_scratch_bytes
     scratch.argtypes, scratch.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    for K in (1, 9, 32, 33, 64, 100, 256):
-        for N in (8, 150, 512):
+    for K in (1, 9, 32, 33, 64, 100, 256, 257, 512, 1024):
+        for N in (8, 11, 150, 512):
             _c, got, state, nz = ca._lanes_layout(K, N)
             assert smem(K, N, int(state == 0), int(nz == 0)) == got
             assert state in (0, scratch(K, N, 0))
@@ -442,8 +466,8 @@ def test_one_shot_plane_launches_the_chain_kernel_on_a_miss_only(dev):
 
 # (B, S, H, KVH, Dh, causal, window, dtype): tests/test_kernels_attention.py
 # CASES, then Dh=128 with GQA, S not a multiple of 64, a window wider than S,
-# a non-causal window, and a single row. bf16 goes to the sm90 kernel (2e-2),
-# fp32 to the SIMT kernel (1e-5).
+# a non-causal window, and a single row. bf16 goes to the bf16 kernel
+# (2e-2), fp32 to the 3xTF32 kernel (1e-5).
 FA_CASES = [
     (2, 128, 4, 4, 64, True, None, torch.float32),
     (2, 256, 4, 2, 64, True, None, torch.float32),
@@ -492,7 +516,7 @@ def test_flash_kernel_equals_plain_version(dev, case):
     got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "simt_fp32"
+    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "sm90_fp32"
     assert fa.launches_by_kernel == {
         **by_kernel, kernel: by_kernel[kernel] + 1}
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -538,6 +562,60 @@ def test_flash_kernel_reads_strided_inputs(dev, dtype):
         tol = _fa_tol(dtype)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 2, 64), (1, 1, 1, 128),
+                                   (2, 129, 1, 256), (1, 2064, 4, 64)])
+def test_fp32_pre_pass_equals_its_plain_version_bit_for_bit(dev, shape):
+    """The fp32 kernel's pre-pass (K and V^T split into tf32 hi and lo
+    planes, zero past Sk, V^T's keys in KEY_ORDER) is tf32_planes_plain
+    bit for bit, on strided views (k and v of one fused tensor)."""
+    B, Sk, KVH, Dh = shape
+    rng = np.random.default_rng(Sk + Dh)
+    fused = torch.as_tensor(rng.standard_normal((B, Sk, 2 * KVH, Dh)).astype(
+        np.float32), device=dev)
+    k, v = fused.split([KVH, KVH], dim=2)
+    before = dict(fa.launches_by_kernel)
+    got = fa.tf32_planes_cuda(k, v)
+    torch.cuda.synchronize()
+    assert fa.launches_by_kernel == before  # a comparison, not counted
+    want = fa.tf32_planes_plain(k, v)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# The fp32 kernel's edges at Dh=256 (one consumer warpgroup, 64-row q
+# tiles, 4 K and 4 V items a 64-key tile through a ring of 3): S around
+# the tiles, each mask, GQA groups 1/2/4.
+FP32_EDGES = [(1, S, 4, 4 // g, 256, causal, window)
+              for S in (1, 63, 64, 65, 128, 129, 300)
+              for g in (1, 4) for causal, window in ((True, None),
+                                                     (True, 70),
+                                                     (False, None))]
+
+
+@pytest.mark.parametrize("case", FP32_EDGES, ids=[str(c) for c in FP32_EDGES])
+def test_fp32_kernel_at_dh256_tile_edges(dev, case):
+    B, S, H, KVH, Dh, causal, window = case
+    q, k, v = _fa_inputs(dev, B, S, H, KVH, Dh, torch.float32, seed=S + H)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fp32_kernel_gives_zero_for_a_row_that_sees_no_key(dev):
+    """With Sq > Sk and a window, late rows see no key: 0, as in the plain
+    version."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+               for shape in ((1, 200, 2, 64), (1, 8, 2, 64), (1, 8, 2, 64)))
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=4)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=4)
+    assert torch.equal(got[:, 11:], torch.zeros_like(got[:, 11:]))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_sm90_kernel_is_deterministic(dev):
@@ -599,7 +677,7 @@ def test_tiny_dense_lm_on_the_card_equals_the_cpu_run(dev, dtype):
     tokens = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab, (2, 100)))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
-    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "simt_fp32"
+    kernel = "sm90_bf16" if dtype == torch.bfloat16 else "sm90_fp32"
     runs = {}
     for name, model in (("gpu", gpu), ("cpu", cpu)):
         cache = model.make_caches(2, 104)
@@ -663,9 +741,9 @@ def test_tiny_family_on_the_card_equals_the_cpu_run(dev, family):
         batch = {"tokens": tokens, **{k: v.to(model.device)
                                       for k, v in extra.items()}}
         cache = model.make_caches(2, 120, **kw)
-        before = fa.launches_by_kernel["simt_fp32"]
+        before = fa.launches_by_kernel["sm90_fp32"]
         logits, cache = build_prefill(model)(cache, batch)
-        launched = fa.launches_by_kernel["simt_fp32"] - before
+        launched = fa.launches_by_kernel["sm90_fp32"] - before
         out = [logits.float().cpu()]
         for _ in range(3):
             nxt = out[-1][:, -1].argmax(-1)[:, None]

@@ -145,6 +145,24 @@ FLASH_CU = """
     }}
 """
 
+# The fp32 kernel's q rows depend on the head dim: a block_q(Dh) function.
+FLASH32_PY = """
+    import torch
+    HEAD_DIMS = (64, 128, 256)
+    TILES = {{"sm90_fp32": {{64: (128, 64), 128: (128, 64), 256: {t256}}}}}
+    KERNELS = {{"sm90_fp32": ("flash_attention_fp32_sm90", torch.float32)}}
+"""
+FLASH32_CU = """
+    constexpr int kBlockK = 64;
+    __host__ __device__ constexpr int block_q(int dh) { return dh > 128 ? 64 : 128; }
+    template <int kDh> int launch() { return kDh; }
+    int go(int dh) {
+      if (dh == 64) return launch<64>();
+      if (dh == 128) return launch<128>();
+      return launch<256>();
+    }
+"""
+
 # name -> (offending files, expected (line, rule) pairs, clean files)
 CASES = {
     "torch-sampler": (
@@ -303,6 +321,22 @@ CASES = {
          (3, "blockspec-shape")],
         {KERNELS + "coflow_assign.py": "CHAIN_CHUNK, CHAIN_STAGES = 512, 4\n",
          KERNELS + "csrc/coflow_assign_sm90.cu": CU_GOOD}),
+    "flash-tiles-block-q": (
+        {KERNELS + "flash_attention.py": FLASH32_PY.format(t256="(128, 64)"),
+         KERNELS + "csrc/flash_attention_fp32_sm90.cu": FLASH32_CU},
+        [(3, "blockspec-shape")],
+        {KERNELS + "flash_attention.py": FLASH32_PY.format(t256="(64, 64)"),
+         KERNELS + "csrc/flash_attention_fp32_sm90.cu": FLASH32_CU}),
+    "cuda-header": (
+        {KERNELS + "csrc/common.cuh": """
+            #pragma once
+            __device__ float g(float x) { return x * 0.5; }
+        """},
+        [(2, "kernel-fp64")],
+        {KERNELS + "csrc/common.cuh": """
+            #pragma once
+            __device__ float g(float x) { return x * 0.5f; }
+        """}),
     "flash-tiles": (
         {KERNELS + "flash_attention.py": FLASH_PY.format(t256="(128, 128)"),
          KERNELS + "csrc/flash_attention_sm90.cu": FLASH_CU.format(last=512)},
@@ -421,10 +455,12 @@ PORT_TREE = (["src/repro_torch", "chip_smoke.py", "scripts/chain_ladder.py",
                  "examples/torch_*.py") for p in REPO.glob(pattern)))
 
 
-#: The port's CUDA sources, in the order the linter reads them.
-CUDA_FILES = [f"src/repro_torch/kernels/csrc/{name}.cu" for name in (
-    "coflow_assign_lanes_sm90", "coflow_assign_sm90", "flash_attention",
-    "flash_attention_sm90")]
+#: The port's CUDA sources and the header two of them share, in the order
+#: the linter reads them.
+CUDA_FILES = [f"src/repro_torch/kernels/csrc/{name}" for name in (
+    "coflow_assign_lanes_sm90.cu", "coflow_assign_sm90.cu",
+    "flash_attention_fp32_sm90.cu", "flash_attention_sm90.cu",
+    "sm90_common.cuh")]
 
 
 def test_port_tree_lints_clean():

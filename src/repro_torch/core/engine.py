@@ -15,6 +15,16 @@ place of pi) is
      back once;
   4. CCTs on the device (``scatter_reduce(..., "amax")``).
 
+Each call of :func:`run_fast`, :func:`run_fast_online` and
+:func:`run_fast_metrics` opens the span ``fast/run`` on the process-wide
+tracer (``obs.trace.current_tracer()``), with one child span a stage:
+``fast/order``, ``fast/extract``, ``fast/assign``, ``fast/to_host`` (the
+service times and resource ids on the device and their copies to the
+host), ``fast/event_loop`` (the host loop, with its work counts
+``events``, ``tested`` and ``flows``), ``fast/to_device`` and
+``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
+shared no-op span, and attributes are computed only behind ``span.live``.
+
 The event loops stay host code over numpy arrays, in a copy the port owns.
 They are sequential logic with no kernel in the reference, they rely on
 numpy's last-write-wins fancy assignment with duplicate indices
@@ -43,6 +53,7 @@ import torch
 
 from repro_torch.kernels.ops import coflow_assign
 from repro_torch.kernels.ref import assign_ref
+from repro_torch.obs.trace import Span, current_tracer
 
 from .assignment import (Assignment, FlatAssignState, _host_f64, assign_fast,
                          assign_random, assign_rho_only, assign_tau_aware,
@@ -159,22 +170,32 @@ def build_flow_table(
             raise ValueError(
                 f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
     policy, _ = _resolve_algorithm(algorithm, "")
-    flows = extract_flows(inst, pi)
+    tracer = current_tracer()
+    with tracer.span("fast/extract") as sp:
+        flows = extract_flows(inst, pi)
+        if sp.live:
+            sp.set(flows=int(flows[0].shape[0]))
     pos, cid, fi, fj, size = flows
-    if (policy == "tau-aware" and delta_k is not None
-            and bool(np.any(delta_k != inst.delta))):
-        st = FlatAssignState(policy, inst.rates, inst.delta, inst.N,
-                             seed=seed, locality=locality)
-        for k in range(inst.K):
-            if delta_k[k] != inst.delta:
-                st.set_delta(k, float(delta_k[k]))
-        core = st.assign(fi, fj, size)
-    elif backend == "kernel" and policy == "tau-aware" and not locality:
-        core = coflow_assign(fi, fj, size, inst.rates, inst.delta,
-                             n_ports=inst.N).to(torch.int64)
-    else:
-        core = assign_fast(inst, pi, policy, seed=seed, flows=flows,
-                           locality=locality)
+    with tracer.span("fast/assign") as sp:
+        if (policy == "tau-aware" and delta_k is not None
+                and bool(np.any(delta_k != inst.delta))):
+            path = "drifted"
+            st = FlatAssignState(policy, inst.rates, inst.delta, inst.N,
+                                 seed=seed, locality=locality)
+            for k in range(inst.K):
+                if delta_k[k] != inst.delta:
+                    st.set_delta(k, float(delta_k[k]))
+            core = st.assign(fi, fj, size)
+        elif backend == "kernel" and policy == "tau-aware" and not locality:
+            path = "kernel"
+            core = coflow_assign(fi, fj, size, inst.rates, inst.delta,
+                                 n_ports=inst.N).to(torch.int64)
+        else:
+            path = "host"
+            core = assign_fast(inst, pi, policy, seed=seed, flows=flows,
+                               locality=locality)
+        if sp.live:
+            sp.set(path=path, flows=int(fi.shape[0]))
     return FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core, size=size)
 
 
@@ -196,6 +217,15 @@ def _by_resource(res_ids: np.ndarray, n_res: int) -> list[np.ndarray]:
     order = np.argsort(res_ids, kind="stable")
     counts = np.bincount(res_ids, minlength=n_res)
     return np.split(order, np.cumsum(counts)[:-1])
+
+
+def _add_counts(stats: dict | None, events: int, tested: int,
+                flows: int) -> None:
+    """Add an event loop's work counts to ``stats`` (when given)."""
+    if stats is not None:
+        for key, n in (("events", events), ("tested", tested),
+                       ("flows", flows)):
+            stats[key] = stats.get(key, 0) + n
 
 
 def _pop_next_event(events: list[float], t: float) -> float:
@@ -220,6 +250,7 @@ def _event_loop(
     release: np.ndarray | None = None,
     free_in0: np.ndarray | None = None,
     free_out0: np.ndarray | None = None,
+    stats: dict | None = None,
 ) -> np.ndarray:
     """Merged event loop over all cores; flows in priority order.
 
@@ -247,10 +278,18 @@ def _event_loop(
     the event heap, so the loop wakes when a committed circuit tears down;
     ``+inf`` horizons (a failed core's resources) are never seeded. With
     ``None`` this is the from-scratch loop.
+
+    ``stats`` (a dict) gets the loop's work added under ``events`` (the
+    times it woke at an event time, the start at ``t0`` included),
+    ``tested`` (the candidate rows that entered the feasibility test: the
+    work-conserving candidates before the free-resource filter, the
+    guarded pending rows after the release filter, once an event) and
+    ``flows`` (the flows started, ``F``). Counting changes no comparison.
     """
     F = rin.size
     t_est = np.full(F, -1.0)
     if F == 0:
+        _add_counts(stats, 0, 0, 0)
         return t_est
     d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
     if free_in0 is None:
@@ -268,6 +307,8 @@ def _event_loop(
         events = np.unique(np.concatenate([seed_in, seed_out])).tolist()
     remaining = F
     t = t0
+    n_events = 1
+    n_tested = 0
     if release is not None:
         rel_uniq, rel_inv = np.unique(release, return_inverse=True)
         events.extend(rel_uniq.tolist())
@@ -295,6 +336,7 @@ def _event_loop(
                 pend = pending[act[core[pending]]]
             if release is not None and pend.size:
                 pend = pend[release[pend] <= t]
+            n_tested += pend.size
             if pend.size:
                 ri, rj = rin[pend], rout[pend]
                 feas = ((free_in[ri] <= t) & (free_out[rj] <= t)
@@ -315,6 +357,8 @@ def _event_loop(
                     if not remaining:
                         break
             t = _pop_next_event(events, t)
+            n_events += 1
+        _add_counts(stats, n_events, n_tested, F)
         return t_est
 
     in_lists = _by_resource(rin, n_res)
@@ -323,6 +367,7 @@ def _event_loop(
     if release is not None:
         cand = cand[release[cand] <= t]
     while remaining:
+        n_tested += cand.size
         cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
         while cand.size:
             safe = _first_occurrence(rin[cand], scratch) \
@@ -341,6 +386,7 @@ def _event_loop(
         if not remaining:
             break
         t = _pop_next_event(events, t)
+        n_events += 1
         pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_in
         pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_out
         if release is not None:
@@ -349,6 +395,7 @@ def _event_loop(
         cand = cand[~done[cand]]
         if release is not None:
             cand = cand[release[cand] <= t]
+    _add_counts(stats, n_events, n_tested, F)
     return t_est
 
 
@@ -356,7 +403,8 @@ def _reserving_times(rin: np.ndarray, rout: np.ndarray, srv: np.ndarray,
                      delta: float | np.ndarray, n_res: int,
                      release: np.ndarray | None = None,
                      avail_in: np.ndarray | None = None,
-                     avail_out: np.ndarray | None = None) -> np.ndarray:
+                     avail_out: np.ndarray | None = None,
+                     stats: dict | None = None) -> np.ndarray:
     """Strict in-order reservation (no backfill) over merged resources.
 
     ``release`` (per flow) is the online variant: flows come in commitment
@@ -366,6 +414,7 @@ def _reserving_times(rin: np.ndarray, rout: np.ndarray, srv: np.ndarray,
     ``avail_in``/``avail_out`` (both or neither) carry the reservation
     horizons across service ticks and are MUTATED in place: a reservation
     never moves once made, so the arrays are the committed state.
+    ``stats`` gets ``events = tested = flows = F``: one reservation a flow.
     """
     d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
     if avail_in is None:
@@ -381,6 +430,7 @@ def _reserving_times(rin: np.ndarray, rout: np.ndarray, srv: np.ndarray,
         avail_in[i] = tc
         avail_out[j] = tc
         t_est[f] = t
+    _add_counts(stats, rin.size, rin.size, rin.size)
     return t_est
 
 
@@ -399,6 +449,7 @@ def _sunflow_times(
     release: np.ndarray | None = None,
     prio: np.ndarray | None = None,
     delta_k: np.ndarray | None = None,
+    stats: dict | None = None,
 ) -> np.ndarray:
     """SUNFLOW-CORE: per core, coflows strictly one after another (a
     barrier), the flows of one coflow largest first with an ``(i, j)``
@@ -408,6 +459,7 @@ def _sunflow_times(
     online variant: whenever the core frees, the arrived unserved coflow of
     best priority rank is served next, idling until the next arrival if
     none is pending. ``delta_k`` replaces ``delta`` core by core.
+    ``stats`` gets the counts of every group's event loop added up.
     """
     t_est = np.full(pos.size, -1.0)
     idx = np.arange(pos.size)
@@ -440,7 +492,7 @@ def _sunflow_times(
             grp = grp[np.lexsort((fj[grp], fi[grp], -size[grp]))]
             te = _event_loop(rin[grp], rout[grp], srv[grp], core[grp], dk,
                              n_res=K * n_ports, n_ports=n_ports, t0=barrier,
-                             guard=True)
+                             guard=True, stats=stats)
             t_est[grp] = te
             barrier = max(barrier, float(((te + dk) + srv[grp]).max()))
     return t_est
@@ -469,48 +521,61 @@ def _times_for_table(
         raise ValueError(
             f"unknown scheduling {scheduling!r}; one of {SCHEDULINGS}")
     K, N = inst.K, inst.N
-    srv = table.size / inst.rates[table.core]
-    rin = _host(table.core * N + table.fi)
-    rout = _host(table.core * N + table.fj)
-    core, srv_h = _host(table.core), _host(srv)
-    dl = inst.delta if delta_k is None else delta_k[core]
-    if scheduling == "sunflow":
-        cols = tuple(_host(t) for t in (table.pos, table.core, table.fi,
-                                        table.fj, table.size))
-    if releases is None:
-        if scheduling == "reserving":
-            t_est = _reserving_times(rin, rout, srv_h, dl, K * N)
-        elif scheduling == "sunflow":
-            t_est = _sunflow_times(*cols, rin, rout, srv_h, inst.delta, N, K,
-                                   delta_k=delta_k)
-        else:
-            t_est = _event_loop(rin, rout, srv_h, core, dl, K * N, N,
-                                guard=(scheduling == "priority-guard"))
-    else:
-        rel_orig = torch.as_tensor(releases, dtype=torch.float64,
-                                   device=inst.device)
-        orig = pi[table.pos]
-        _, prio_rank = online_orders(inst, rel_orig)
-        rel_f, prio_f = _host(rel_orig[orig]), prio_rank[orig]
-        if scheduling in ("work-conserving", "priority-guard"):
-            # Flows in scheduling-priority order: WSPT coflow rank, then the
-            # intra-coflow assignment order (stable).
-            perm = _host(torch.argsort(prio_f, stable=True))
+    tracer = current_tracer()
+    with tracer.span("fast/to_host"):
+        srv = table.size / inst.rates[table.core]
+        rin = _host(table.core * N + table.fi)
+        rout = _host(table.core * N + table.fj)
+        core, srv_h = _host(table.core), _host(srv)
+        dl = inst.delta if delta_k is None else delta_k[core]
+        if scheduling == "sunflow":
+            cols = tuple(_host(t) for t in (table.pos, table.core, table.fi,
+                                            table.fj, table.size))
+        if releases is not None:
+            rel_orig = torch.as_tensor(releases, dtype=torch.float64,
+                                       device=inst.device)
+            orig = pi[table.pos]
+            _, prio_rank = online_orders(inst, rel_orig)
+            rel_f, prio_f = _host(rel_orig[orig]), prio_rank[orig]
+            if scheduling in ("work-conserving", "priority-guard"):
+                # Flows in scheduling-priority order: WSPT coflow rank, then
+                # the intra-coflow assignment order (stable).
+                perm = _host(torch.argsort(prio_f, stable=True))
+            elif scheduling == "sunflow":
+                prio_h = _host(prio_f)
+    with tracer.span("fast/event_loop") as sp:
+        stats = dict(events=0, tested=0, flows=0) if sp.live else None
+        if releases is None:
+            if scheduling == "reserving":
+                t_est = _reserving_times(rin, rout, srv_h, dl, K * N,
+                                         stats=stats)
+            elif scheduling == "sunflow":
+                t_est = _sunflow_times(*cols, rin, rout, srv_h, inst.delta, N,
+                                       K, delta_k=delta_k, stats=stats)
+            else:
+                t_est = _event_loop(rin, rout, srv_h, core, dl, K * N, N,
+                                    guard=(scheduling == "priority-guard"),
+                                    stats=stats)
+        elif scheduling in ("work-conserving", "priority-guard"):
             te = _event_loop(rin[perm], rout[perm], srv_h[perm], core[perm],
                              dl if delta_k is None else dl[perm], K * N, N,
                              guard=(scheduling == "priority-guard"),
-                             release=rel_f[perm])
+                             release=rel_f[perm], stats=stats)
             t_est = np.empty_like(te)
             t_est[perm] = te
         elif scheduling == "reserving":
             # commitment in arrival order, the flow table's own order
             t_est = _reserving_times(rin, rout, srv_h, dl, K * N,
-                                     release=rel_f)
+                                     release=rel_f, stats=stats)
         else:
             t_est = _sunflow_times(*cols, rin, rout, srv_h, inst.delta, N, K,
-                                   release=rel_f, prio=_host(prio_f),
-                                   delta_k=delta_k)
-    return torch.from_numpy(t_est).to(inst.device), srv
+                                   release=rel_f, prio=prio_h,
+                                   delta_k=delta_k, stats=stats)
+        if sp.live:
+            sp.set(**stats)
+    with tracer.span("fast/to_device"):
+        t_dev = torch.from_numpy(t_est).to(inst.device)
+    return t_dev, srv
 
 
 def _ccts_from_times(inst: Instance, pi: torch.Tensor, table: FlowTable,
@@ -592,6 +657,13 @@ def _delta_f(inst: Instance, table: FlowTable,
     return torch.tensor(delta_k, device=inst.device)[table.core]
 
 
+def _run_attrs(sp: Span, inst: Instance, table: FlowTable, backend: str,
+               scheduling: str, *, online: bool, metrics_only: bool) -> None:
+    """The attributes of a live ``fast/run`` span."""
+    sp.set(flows=table.n_flows, coflows=inst.M, K=inst.K, backend=backend,
+           scheduling=scheduling, online=online, metrics_only=metrics_only)
+
+
 def run_fast(
     inst: Instance,
     algorithm: str = "ours",
@@ -617,15 +689,24 @@ def run_fast(
     with each core's delay; ``locality`` is the tau-aware batch-affinity
     bias. Either one runs the fp64 host backend.
     """
-    delta_k = _normalize_delta_k(inst, delta_k)
-    pi = order_coflows(inst)
-    _, scheduling = _resolve_algorithm(algorithm, scheduling)
-    table = build_flow_table(inst, pi, algorithm, seed=seed, backend=backend,
-                             delta_k=delta_k, locality=locality)
-    t_est, srv = _times_for_table(inst, pi, table, scheduling,
-                                  delta_k=delta_k)
-    return _schedule_from_times(inst, pi, table, t_est, srv,
-                                _delta_f(inst, table, delta_k))
+    tracer = current_tracer()
+    with tracer.span("fast/run") as sp:
+        delta_k = _normalize_delta_k(inst, delta_k)
+        with tracer.span("fast/order"):
+            pi = order_coflows(inst)
+        _, scheduling = _resolve_algorithm(algorithm, scheduling)
+        table = build_flow_table(inst, pi, algorithm, seed=seed,
+                                 backend=backend, delta_k=delta_k,
+                                 locality=locality)
+        t_est, srv = _times_for_table(inst, pi, table, scheduling,
+                                      delta_k=delta_k)
+        with tracer.span("fast/schedule"):
+            sched = _schedule_from_times(inst, pi, table, t_est, srv,
+                                         _delta_f(inst, table, delta_k))
+        if sp.live:
+            _run_attrs(sp, inst, table, backend, scheduling, online=False,
+                       metrics_only=False)
+    return sched
 
 
 def run_fast_metrics(
@@ -643,20 +724,29 @@ def run_fast_metrics(
     :func:`run_fast_online` (``releases`` ``(M,)`` by original coflow id),
     stopped at the CCTs: returns ``(ccts (M,), n_flows)`` without building a
     ``Schedule``."""
-    if releases is None:
-        pi = order_coflows(inst)
-    else:
-        releases = torch.as_tensor(releases, dtype=torch.float64,
-                                   device=inst.device)
-        pi, _ = online_orders(inst, releases)
-    delta_k = _normalize_delta_k(inst, delta_k)
-    _, scheduling = _resolve_algorithm(algorithm, scheduling)
-    table = build_flow_table(inst, pi, algorithm, seed=seed, backend=backend,
-                             delta_k=delta_k, locality=locality)
-    t_est, srv = _times_for_table(inst, pi, table, scheduling, releases,
-                                  delta_k=delta_k)
-    return (_ccts_from_times(inst, pi, table, t_est, srv,
-                             _delta_f(inst, table, delta_k)), table.n_flows)
+    tracer = current_tracer()
+    with tracer.span("fast/run") as sp:
+        with tracer.span("fast/order"):
+            if releases is None:
+                pi = order_coflows(inst)
+            else:
+                releases = torch.as_tensor(releases, dtype=torch.float64,
+                                           device=inst.device)
+                pi, _ = online_orders(inst, releases)
+        delta_k = _normalize_delta_k(inst, delta_k)
+        _, scheduling = _resolve_algorithm(algorithm, scheduling)
+        table = build_flow_table(inst, pi, algorithm, seed=seed,
+                                 backend=backend, delta_k=delta_k,
+                                 locality=locality)
+        t_est, srv = _times_for_table(inst, pi, table, scheduling, releases,
+                                      delta_k=delta_k)
+        with tracer.span("fast/schedule"):
+            ccts = _ccts_from_times(inst, pi, table, t_est, srv,
+                                    _delta_f(inst, table, delta_k))
+        if sp.live:
+            _run_attrs(sp, inst, table, backend, scheduling,
+                       online=releases is not None, metrics_only=True)
+    return ccts, table.n_flows
 
 
 def run_fast_online(
@@ -681,16 +771,24 @@ def run_fast_online(
     """
     inst = oinst.inst
     rel = oinst.releases
-    delta_k = _normalize_delta_k(inst, delta_k)
-    arrival, _ = online_orders(inst, rel)
-    _, scheduling = _resolve_algorithm(algorithm, scheduling)
-    table = build_flow_table(inst, arrival, algorithm, seed=seed,
-                             backend=backend, delta_k=delta_k,
-                             locality=locality)
-    t_est, srv = _times_for_table(inst, arrival, table, scheduling,
-                                  releases=rel, delta_k=delta_k)
-    return _schedule_from_times(inst, arrival, table, t_est, srv,
-                                _delta_f(inst, table, delta_k))
+    tracer = current_tracer()
+    with tracer.span("fast/run") as sp:
+        delta_k = _normalize_delta_k(inst, delta_k)
+        with tracer.span("fast/order"):
+            arrival, _ = online_orders(inst, rel)
+        _, scheduling = _resolve_algorithm(algorithm, scheduling)
+        table = build_flow_table(inst, arrival, algorithm, seed=seed,
+                                 backend=backend, delta_k=delta_k,
+                                 locality=locality)
+        t_est, srv = _times_for_table(inst, arrival, table, scheduling,
+                                      releases=rel, delta_k=delta_k)
+        with tracer.span("fast/schedule"):
+            sched = _schedule_from_times(inst, arrival, table, t_est, srv,
+                                         _delta_f(inst, table, delta_k))
+        if sp.live:
+            _run_attrs(sp, inst, table, backend, scheduling, online=True,
+                       metrics_only=False)
+    return sched
 
 
 # --------------------------------------------------------------------------

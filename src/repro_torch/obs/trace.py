@@ -24,9 +24,17 @@ The span taxonomy the fabric emits:
   ``cache/hit|miss|purge`` one-shot program-cache traffic (events)
 
 Device work: a span that closes while CUDA work is pending would time the
-launch, not the work. So a recording tracer synchronises the CUDA device
-before it reads the clock at a span's end, whenever this process has
-initialised CUDA. The disabled tracer never does.
+launch, not the work, and one that opens on work its parent queued would
+be charged that work. So a recording tracer synchronises the CUDA device
+before it reads the clock at a span's open and at its end, whenever this
+process has initialised CUDA. The disabled tracer never does.
+
+One clock with the device trace: while ``torch``'s profiler records, a
+recording span also opens a ``torch.profiler.record_function`` range of
+its name on ``__enter__`` and closes it on ``__exit__`` (after the
+synchronise, before the span is recorded), so the profiler's trace names
+the device's idle time by the program's own spans. Without a profiler
+nothing is opened.
 
 Determinism contract: the tracer only *observes* -- all timestamps come
 from :mod:`repro_torch.obs.clock` and no instrumented code path reads a
@@ -73,6 +81,17 @@ def _sync_device() -> None:
         torch.cuda.synchronize()
 
 
+def _profiler_range(name: str) -> object | None:
+    """An open ``record_function`` range named ``name`` while ``torch``'s
+    profiler records, else ``None`` (nothing is imported here for it)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class Span:
     """One open interval; closes (and records itself) on ``__exit__``.
 
@@ -81,7 +100,8 @@ class Span:
     disabled path stays free.
     """
 
-    __slots__ = ("_tracer", "name", "sid", "parent", "depth", "t0", "attrs")
+    __slots__ = ("_tracer", "name", "sid", "parent", "depth", "t0", "attrs",
+                 "_range")
 
     live: bool = True
 
@@ -94,6 +114,7 @@ class Span:
         self.depth = depth
         self.t0 = now()
         self.attrs: dict[str, object] = {}
+        self._range: object | None = None
 
     def set(self, **attrs: object) -> "Span":
         """Attach typed attributes (recorded when the span closes)."""
@@ -101,9 +122,14 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type: object, exc: object, tb: object) -> bool:
+        _sync_device()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)  # type: ignore[attr-defined]
+            self._range = None
         self._tracer._close(self, error=exc_type is not None)
         return False
 
@@ -156,6 +182,7 @@ class Tracer:
         sid = self._next_sid
         self._next_sid += 1
         parent = self._stack[-1].sid if self._stack else None
+        _sync_device()
         sp = Span(self, name, sid, parent, depth=len(self._stack))
         self._stack.append(sp)
         return sp
@@ -179,7 +206,6 @@ class Tracer:
             top = self._stack.pop()
             if top is span:
                 break
-        _sync_device()
         rec: dict[str, object] = {
             "kind": "span", "name": span.name, "sid": span.sid,
             "parent": span.parent, "depth": span.depth,

@@ -141,7 +141,22 @@ def test_a_recording_span_ends_in_a_device_synchronise(monkeypatch):
     with tr.span("tick"):
         with tr.span("tick/assign"):
             pass
-    assert len(calls) == 2
+    assert len(calls) == 4  # one at each span's open, one at each end
+
+
+def test_a_recording_span_opens_on_a_device_synchronise(monkeypatch):
+    """Device work queued before a span opens (by its parent's own code)
+    is waited for before the span reads the clock, so it is not charged
+    to the span."""
+    log = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: log.append("sync"))
+    monkeypatch.setattr(port_trace, "now", lambda: log.append("clock") or 0.0)
+    tr = obs.Tracer()
+    with tr.span("tick"):
+        log.append("work")
+    assert log == ["sync", "clock", "work", "sync", "clock"]
 
 
 def test_jsonl_sink_chrome_export_and_the_reference_validator(tmp_path):

@@ -21,16 +21,22 @@ tracer (``obs.trace.current_tracer()``), with one child span a stage:
 ``fast/order``, ``fast/extract``, ``fast/assign``, ``fast/to_host`` (the
 service times and resource ids on the device and their copies to the
 host), ``fast/event_loop`` (the host loop, with its work counts
-``events``, ``tested`` and ``flows``), ``fast/to_device`` and
-``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
+``events``, ``tested`` and ``flows`` and its ``impl``), ``fast/to_device``
+and ``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
 shared no-op span, and attributes are computed only behind ``span.live``.
 
-The event loops stay host code over numpy arrays, in a copy the port owns.
-They are sequential logic with no kernel in the reference, they rely on
+The event loops stay host code: sequential logic with no kernel in the
+reference, where each event depends on the free times the last one wrote
+and does a few comparisons and one start. The circuit event loop
+(:func:`_event_loop`) runs compiled, as plain C++ built on first use by
+the host compiler (``kernels/event_loop.py``, ``csrc/event_loop_host.cpp``),
+in one foreign call a loop. Its numpy twin :func:`_event_loop_plain` is
+the reference the tests hold the compiled loop to bit for bit; it relies on
 numpy's last-write-wins fancy assignment with duplicate indices
-(``_first_occurrence``; torch's ``index_put_`` leaves that order undefined),
-and they run per-event operations on tiny arrays, where torch's per-call
-overhead would dominate. Moving them onto the card is later work.
+(``_first_occurrence``; torch's ``index_put_`` leaves that order
+undefined). The reserving loop and sunflow's per-group glue stay numpy.
+``fast/event_loop``'s ``impl`` says which loop the stage runs:
+``"compiled"``, or ``"numpy"`` for the reserving loop.
 
 Completion times keep the reference's float associativity,
 ``(t + delta) + size/rate``, so establishment times and CCTs are
@@ -51,6 +57,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from repro_torch.kernels import event_loop as compiled_loop
 from repro_torch.kernels.ops import coflow_assign
 from repro_torch.kernels.ref import assign_ref
 from repro_torch.obs.trace import Span, current_tracer
@@ -238,6 +245,33 @@ def _pop_next_event(events: list[float], t: float) -> float:
 
 
 def _event_loop(
+    rin: np.ndarray,
+    rout: np.ndarray,
+    srv: np.ndarray,
+    core: np.ndarray,
+    delta: float | np.ndarray,
+    n_res: int,
+    n_ports: int,
+    t0: float = 0.0,
+    guard: bool = False,
+    release: np.ndarray | None = None,
+    free_in0: np.ndarray | None = None,
+    free_out0: np.ndarray | None = None,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Merged event loop over all cores, compiled: the semantics, the
+    arguments and the counts of :func:`_event_loop_plain`, bit for bit, in
+    one call of the host library (``kernels/event_loop.py``), built on
+    first use. Raises a ``ValueError`` for an id out of range, a NaN or a
+    negative ``t0``."""
+    t_est, counts = compiled_loop.event_loop_compiled(
+        rin, rout, srv, core, delta, n_res, n_ports, t0, guard, release,
+        free_in0, free_out0)
+    _add_counts(stats, *counts)
+    return t_est
+
+
+def _event_loop_plain(
     rin: np.ndarray,    # (F,) int64 ingress resource ids (core*N + i)
     rout: np.ndarray,   # (F,) int64 egress resource ids (core*N + j)
     srv: np.ndarray,    # (F,) float64 service times size/rate[core]
@@ -252,7 +286,8 @@ def _event_loop(
     free_out0: np.ndarray | None = None,
     stats: dict | None = None,
 ) -> np.ndarray:
-    """Merged event loop over all cores; flows in priority order.
+    """Merged event loop over all cores in numpy; flows in priority order.
+    The reference the compiled :func:`_event_loop` is held to in tests.
 
     Returns t_establish per flow, exactly as the reference's sequential
     list scan: at each event the started set is {flows whose two resources
@@ -572,7 +607,8 @@ def _times_for_table(
                                    release=rel_f, prio=prio_h,
                                    delta_k=delta_k, stats=stats)
         if sp.live:
-            sp.set(**stats)
+            sp.set(**stats, impl="numpy" if scheduling == "reserving"
+                   else "compiled")
     with tracer.span("fast/to_device"):
         t_dev = torch.from_numpy(t_est).to(inst.device)
     return t_dev, srv

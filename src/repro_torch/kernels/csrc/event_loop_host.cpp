@@ -1,0 +1,404 @@
+// Circuit event loop over all cores, compiled for the host.
+//
+// The loop of core/engine.py::_event_loop_plain in one call, with its
+// semantics bit for bit: the same establishment times and the same work
+// counts (events, tested, flows). Plain C++17 with a C entry point, built
+// by kernels/_build.py with -ffp-contract=off and never -ffast-math, so
+// each double operation rounds as numpy's does: a completion time is
+// (t + delta) + srv, with t copied from the event time it was popped as,
+// and every comparison is the exact == or <= of the numpy loop.
+//
+// What differs is only how an event finds its work. The numpy loop scans
+// every resource for a free time equal to t. Here each heap entry carries
+// what it came from (a started flow, a seeded horizon, a release group),
+// and the resources freed at t are those named by the entries popped at t
+// whose free time still equals t: a resource's free time is the value of
+// its last write, and every write above t0 pushes an entry. The one value
+// no entry can name is +inf (a failed core's horizon is never seeded), so
+// an event at t = +inf scans as the numpy loop does. The work-conserving
+// flow lists keep a cursor past their leading finished flows.
+//
+// Inputs outside the loop's domain (an id out of range, a NaN, t0 < 0,
+// where +0 and -0 may tie in the heap) return kInvalid, which the caller
+// raises as a ValueError.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <queue>
+#include <vector>
+
+namespace {
+
+enum : int { kOk = 0, kDeadlock = 1, kInvalid = 2, kFailed = 3 };
+enum : int32_t { kFlow = 0, kSeedIn = 1, kSeedOut = 2, kRelease = 3 };
+
+struct Entry {
+  double t;
+  int64_t id;    // a flow, a resource or a release group, by kind
+  int32_t kind;
+};
+
+struct Later {
+  bool operator()(const Entry& a, const Entry& b) const { return a.t > b.t; }
+};
+
+// Marks that are cleared by moving to a new epoch.
+struct Marks {
+  std::vector<int64_t> at;
+  int64_t epoch = 0;
+  explicit Marks(int64_t n) : at(static_cast<size_t>(n), 0) {}
+  void next() { ++epoch; }
+  // True the first time i is marked in this epoch.
+  bool mark(int64_t i) {
+    if (at[i] == epoch) return false;
+    at[i] = epoch;
+    return true;
+  }
+};
+
+struct Loop {
+  int64_t F, n_res, n_ports;
+  const int64_t *rin, *rout, *core;
+  const double *srv, *delta_f, *release;
+  double delta;
+  double* t_est;
+
+  std::vector<double> free_in, free_out;
+  std::vector<uint8_t> done;
+  std::priority_queue<Entry, std::vector<Entry>, Later> heap;
+  // flows grouped by release value, in priority order within a group:
+  // group g is rel_flows[rel_start[g] .. rel_start[g + 1])
+  std::vector<int64_t> rel_flows, rel_start;
+  // what the last event freed: resources (ingress, egress), release groups
+  std::vector<int64_t> freed_in, freed_out, groups;
+  Marks freed_mark_in, freed_mark_out;
+  Marks first_in, first_out;  // first occurrence on each resource
+
+  double t;
+  int64_t remaining, n_events = 1, n_tested = 0;
+
+  Loop(int64_t F_, int64_t n_res_)
+      : F(F_), n_res(n_res_), free_in(n_res_), free_out(n_res_),
+        done(static_cast<size_t>(F_), 0), freed_mark_in(n_res_),
+        freed_mark_out(n_res_), first_in(n_res_), first_out(n_res_) {}
+
+  void start(int64_t f) {
+    const double tc = (t + (delta_f ? delta_f[f] : delta)) + srv[f];
+    free_in[rin[f]] = tc;
+    free_out[rout[f]] = tc;
+    t_est[f] = t;
+    done[f] = 1;
+    --remaining;
+    heap.push({tc, f, kFlow});
+  }
+
+  void freed(int64_t r, bool in) {
+    if (in) {
+      if (free_in[r] == t && freed_mark_in.mark(r)) freed_in.push_back(r);
+    } else {
+      if (free_out[r] == t && freed_mark_out.mark(r)) freed_out.push_back(r);
+    }
+  }
+
+  // Moves t to the earliest entry strictly after it and gathers what that
+  // time freed; false when no entry is left (the deadlock).
+  bool next_event() {
+    while (!heap.empty() && heap.top().t <= t) heap.pop();
+    if (heap.empty()) return false;
+    t = heap.top().t;
+    ++n_events;
+    freed_in.clear();
+    freed_out.clear();
+    groups.clear();
+    freed_mark_in.next();
+    freed_mark_out.next();
+    const bool scan = std::isinf(t);
+    while (!heap.empty() && heap.top().t == t) {
+      const Entry e = heap.top();
+      heap.pop();
+      if (e.kind == kRelease) {
+        groups.push_back(e.id);
+      } else if (!scan) {
+        if (e.kind == kFlow) {
+          freed(rin[e.id], true);
+          freed(rout[e.id], false);
+        } else {
+          freed(e.id, e.kind == kSeedIn);
+        }
+      }
+    }
+    if (scan) {
+      for (int64_t r = 0; r < n_res; ++r) {
+        freed(r, true);
+        freed(r, false);
+      }
+    }
+    return true;
+  }
+
+  template <typename Fn>
+  void for_released_at_t(Fn&& fn) const {
+    for (int64_t g : groups)
+      for (int64_t k = rel_start[g]; k < rel_start[g + 1]; ++k)
+        fn(rel_flows[k]);
+  }
+
+  bool free_at_t(int64_t f) const {
+    return free_in[rin[f]] <= t && free_out[rout[f]] <= t;
+  }
+
+  int work_conserving();
+  int priority_guard();
+};
+
+// Every pending flow has a busy resource or an unreached release after an
+// event's fixed point, so the candidates of the next event are the flows on
+// the resources it frees and the flows it releases.
+int Loop::work_conserving() {
+  // flows by resource, in priority (index) order
+  std::vector<int64_t> in_off(n_res + 1, 0), out_off(n_res + 1, 0);
+  for (int64_t f = 0; f < F; ++f) {
+    ++in_off[rin[f] + 1];
+    ++out_off[rout[f] + 1];
+  }
+  for (int64_t r = 0; r < n_res; ++r) {
+    in_off[r + 1] += in_off[r];
+    out_off[r + 1] += out_off[r];
+  }
+  std::vector<int64_t> in_flows(F), out_flows(F);
+  std::vector<int64_t> in_cur(in_off.begin(), in_off.end() - 1);
+  std::vector<int64_t> out_cur(out_off.begin(), out_off.end() - 1);
+  for (int64_t f = 0; f < F; ++f) {
+    in_flows[in_cur[rin[f]]++] = f;
+    out_flows[out_cur[rout[f]]++] = f;
+  }
+  std::copy(in_off.begin(), in_off.end() - 1, in_cur.begin());
+  std::copy(out_off.begin(), out_off.end() - 1, out_cur.begin());
+
+  Marks taken(F);
+  std::vector<int64_t> cand, next;
+  cand.reserve(F);
+  next.reserve(F);
+  for (int64_t f = 0; f < F; ++f)
+    if (!release || release[f] <= t) cand.push_back(f);
+
+  auto gather = [&](const std::vector<int64_t>& freed_r,
+                    const std::vector<int64_t>& off,
+                    const std::vector<int64_t>& flows,
+                    std::vector<int64_t>& cur) {
+    for (int64_t r : freed_r) {
+      int64_t k = cur[r];
+      const int64_t end = off[r + 1];
+      while (k < end && done[flows[k]]) ++k;
+      cur[r] = k;
+      for (; k < end; ++k) {
+        const int64_t f = flows[k];
+        if (!done[f] && taken.mark(f)) cand.push_back(f);
+      }
+    }
+  };
+
+  for (;;) {
+    n_tested += static_cast<int64_t>(cand.size());
+    next.clear();
+    for (int64_t f : cand)
+      if (free_at_t(f)) next.push_back(f);
+    cand.swap(next);
+    // the fixed point: start every candidate first on both its resources
+    // among the free candidates, until none is left
+    while (!cand.empty()) {
+      first_in.next();
+      first_out.next();
+      next.clear();
+      for (int64_t f : cand) {
+        const bool a = first_in.mark(rin[f]);
+        const bool b = first_out.mark(rout[f]);
+        if (a && b) {
+          start(f);
+        } else if (free_at_t(f)) {
+          next.push_back(f);
+        }
+      }
+      cand.swap(next);
+    }
+    if (remaining == 0) break;
+    if (!next_event()) return kDeadlock;
+    cand.clear();
+    taken.next();
+    gather(freed_in, in_off, in_flows, in_cur);
+    gather(freed_out, out_off, out_flows, out_cur);
+    for_released_at_t([&](int64_t f) {
+      if (!done[f] && taken.mark(f)) cand.push_back(f);
+    });
+    if (release) {
+      size_t n = 0;
+      for (int64_t f : cand)
+        if (release[f] <= t) cand[n++] = f;
+      cand.resize(n);
+    }
+    std::sort(cand.begin(), cand.end());
+  }
+  return kOk;
+}
+
+// One pass an event over the released pending rows of the cores active at
+// t: a row starts if its resources are free and it is the first of those
+// rows on both, so a pending row holds its resources whether or not it
+// starts.
+int Loop::priority_guard() {
+  const int64_t n_cores = n_res / n_ports;
+  std::vector<std::vector<int64_t>> pending(n_cores);
+  for (int64_t f = 0; f < F; ++f) pending[core[f]].push_back(f);
+  Marks act(n_cores);
+  std::vector<int64_t> active, pend;
+  pend.reserve(F);
+  bool first_event = true;
+  for (;;) {
+    pend.clear();
+    active.clear();
+    if (first_event) {
+      first_event = false;
+      for (int64_t c = 0; c < n_cores; ++c) active.push_back(c);
+      for (int64_t f = 0; f < F; ++f) pend.push_back(f);
+    } else {
+      act.next();
+      for (int64_t r : freed_in)
+        if (act.mark(r / n_ports)) active.push_back(r / n_ports);
+      for (int64_t r : freed_out)
+        if (act.mark(r / n_ports)) active.push_back(r / n_ports);
+      for_released_at_t([&](int64_t f) {
+        if (!done[f] && act.mark(core[f])) active.push_back(core[f]);
+      });
+      for (int64_t c : active)
+        pend.insert(pend.end(), pending[c].begin(), pending[c].end());
+      if (active.size() > 1) std::sort(pend.begin(), pend.end());
+    }
+    if (release) {
+      size_t n = 0;
+      for (int64_t f : pend)
+        if (release[f] <= t) pend[n++] = f;
+      pend.resize(n);
+    }
+    n_tested += static_cast<int64_t>(pend.size());
+    if (!pend.empty()) {
+      first_in.next();
+      first_out.next();
+      bool started = false;
+      for (int64_t f : pend) {
+        const bool a = first_in.mark(rin[f]);
+        const bool b = first_out.mark(rout[f]);
+        if (a && b && free_at_t(f)) {
+          start(f);
+          started = true;
+        }
+      }
+      if (started) {
+        for (int64_t c : active) {
+          auto& p = pending[c];
+          p.erase(std::remove_if(p.begin(), p.end(),
+                                 [&](int64_t f) { return done[f] != 0; }),
+                  p.end());
+        }
+        if (remaining == 0) break;
+      }
+    }
+    if (!next_event()) return kDeadlock;
+  }
+  return kOk;
+}
+
+bool in_range(const int64_t* v, int64_t n, int64_t hi) {
+  for (int64_t k = 0; k < n; ++k)
+    if (v[k] < 0 || v[k] >= hi) return false;
+  return true;
+}
+
+bool any_nan(const double* v, int64_t n) {
+  for (int64_t k = 0; k < n; ++k)
+    if (std::isnan(v[k])) return true;
+  return false;
+}
+
+}  // namespace
+
+// Establishment times t_est (F,) and counts {events, tested, flows} of the
+// merged event loop over flows in priority order. rin/rout are resource
+// ids (core * n_ports + port); core is read only when guard is set.
+// delta_f (per flow) replaces delta when not null; release (per flow) and
+// the seeded horizons free_in0/free_out0 (per resource, both or neither)
+// may be null. Returns kOk, kDeadlock (pending flows but no event left),
+// kInvalid (an input outside the domain above) or kFailed (no memory).
+extern "C" int event_loop_host(
+    int64_t n_flows, const int64_t* rin, const int64_t* rout,
+    const double* srv, const int64_t* core, double delta,
+    const double* delta_f, int64_t n_res, int64_t n_ports, double t0,
+    int guard, const double* release, const double* free_in0,
+    const double* free_out0, double* t_est, int64_t* counts) {
+  counts[0] = counts[1] = counts[2] = 0;
+  if (n_flows == 0) return kOk;
+  if (n_flows < 0 || n_res <= 0 || std::isnan(t0) || t0 < 0.0 ||
+      (free_in0 == nullptr) != (free_out0 == nullptr))
+    return kInvalid;
+  if (!in_range(rin, n_flows, n_res) || !in_range(rout, n_flows, n_res) ||
+      any_nan(srv, n_flows) ||
+      (delta_f ? any_nan(delta_f, n_flows) : std::isnan(delta)) ||
+      (release && any_nan(release, n_flows)) ||
+      (free_in0 && (any_nan(free_in0, n_res) || any_nan(free_out0, n_res))))
+    return kInvalid;
+  if (guard && (n_ports <= 0 || n_res % n_ports != 0 ||
+                !in_range(core, n_flows, n_res / n_ports)))
+    return kInvalid;
+  try {
+    Loop L(n_flows, n_res);
+    L.rin = rin;
+    L.rout = rout;
+    L.core = core;
+    L.srv = srv;
+    L.delta = delta;
+    L.delta_f = delta_f;
+    L.release = release;
+    L.n_ports = n_ports;
+    L.t_est = t_est;
+    L.t = t0;
+    L.remaining = n_flows;
+    for (int64_t f = 0; f < n_flows; ++f) t_est[f] = -1.0;
+    if (free_in0) {
+      std::copy(free_in0, free_in0 + n_res, L.free_in.begin());
+      std::copy(free_out0, free_out0 + n_res, L.free_out.begin());
+      for (int64_t r = 0; r < n_res; ++r) {
+        if (L.free_in[r] > t0 && std::isfinite(L.free_in[r]))
+          L.heap.push({L.free_in[r], r, kSeedIn});
+        if (L.free_out[r] > t0 && std::isfinite(L.free_out[r]))
+          L.heap.push({L.free_out[r], r, kSeedOut});
+      }
+    } else {
+      std::fill(L.free_in.begin(), L.free_in.end(), t0);
+      std::fill(L.free_out.begin(), L.free_out.end(), t0);
+    }
+    if (release) {
+      std::vector<int64_t>& order = L.rel_flows;
+      order.resize(n_flows);
+      for (int64_t f = 0; f < n_flows; ++f) order[f] = f;
+      std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+        return release[a] < release[b];
+      });
+      for (int64_t k = 0; k < n_flows; ++k) {
+        if (k == 0 || release[order[k]] != release[order[k - 1]]) {
+          L.heap.push({release[order[k]],
+                       static_cast<int64_t>(L.rel_start.size()), kRelease});
+          L.rel_start.push_back(k);
+        }
+      }
+      L.rel_start.push_back(n_flows);
+    }
+    const int rc = guard ? L.priority_guard() : L.work_conserving();
+    if (rc != kOk) return rc;
+    counts[0] = L.n_events;
+    counts[1] = L.n_tested;
+    counts[2] = n_flows;
+    return kOk;
+  } catch (...) {
+    return kFailed;
+  }
+}

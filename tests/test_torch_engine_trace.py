@@ -3,7 +3,7 @@
 ``run_fast``, ``run_fast_online`` and ``run_fast_metrics`` open one
 ``fast/run`` span a call on the process-wide tracer, with a child span a
 stage; ``fast/event_loop`` carries the loop's ``events``, ``tested`` and
-``flows``. Tracing observes only: every schedule is bit for bit the one
+``flows`` and which loop ran (``impl``). Tracing observes only: every schedule is bit for bit the one
 the tracer-off run gives. While ``torch``'s profiler records, each span is
 also a profiler range of its name, so the spans sit on the profiler's
 clock.
@@ -17,6 +17,7 @@ import repro_torch.core as port
 import repro_torch.core.engine as port_engine
 from repro.obs.cli import validate_records
 from repro_torch import obs
+from repro_torch.kernels import _build
 
 SCHEDULINGS = ("work-conserving", "priority-guard", "reserving", "sunflow")
 ENTRIES = ("run_fast", "run_fast_online", "run_fast_metrics")
@@ -33,6 +34,16 @@ def _instance(N=8, M=10, K=3, seed=5):
 
 INST = _instance()
 RELEASES = torch.arange(INST.M, dtype=torch.float64) * 40.0
+
+
+def _compiled_impl():
+    """``fast/event_loop``'s ``impl`` of the circuit event loop: compiled
+    where a host compiler builds it."""
+    try:
+        _build.host_compiler()
+    except RuntimeError:
+        return "numpy"
+    return "compiled"
 
 
 def _call(entry, scheduling, backend):
@@ -93,7 +104,9 @@ def test_spans_nest_under_one_run_and_schedules_stay_bitwise(entry,
     assert by["fast/assign"]["attrs"] == {
         "path": "kernel" if backend == "kernel" else "host", "flows": n_flows}
     loop = by["fast/event_loop"]["attrs"]
-    assert set(loop) == {"events", "tested", "flows"}
+    assert set(loop) == {"events", "tested", "flows", "impl"}
+    assert loop["impl"] == ("numpy" if scheduling == "reserving"
+                            else _compiled_impl())
     assert loop["flows"] == n_flows
     assert loop["tested"] >= loop["flows"] and loop["events"] >= 1
     order = [r["name"] for r in sorted(spans, key=lambda r: r["ts"])]
@@ -208,8 +221,9 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
     loop_attrs = next(r for r in _spans(tr)
                       if r["name"] == "fast/event_loop")["attrs"]
     assert len(own) > 1
-    assert loop_attrs == {k: sum(c[k] for c in own)
-                          for k in ("events", "tested", "flows")}
+    assert loop_attrs == {**{k: sum(c[k] for c in own)
+                             for k in ("events", "tested", "flows")},
+                          "impl": _compiled_impl()}
     assert loop_attrs["flows"] == s.n_flows
 
 
@@ -217,7 +231,7 @@ def test_reserving_counts_one_reservation_a_flow():
     s, tr = _traced(lambda: port.run_fast(INST, scheduling="reserving"))
     loop = next(r for r in _spans(tr) if r["name"] == "fast/event_loop")
     assert loop["attrs"] == {"events": s.n_flows, "tested": s.n_flows,
-                             "flows": s.n_flows}
+                             "flows": s.n_flows, "impl": "numpy"}
 
 
 # -- one clock with the profiler ---------------------------------------------

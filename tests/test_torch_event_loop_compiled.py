@@ -1,0 +1,339 @@
+"""The compiled circuit event loop against its numpy twin, bit for bit.
+
+``core.engine._event_loop`` runs ``kernels/csrc/event_loop_host.cpp``,
+built by the host compiler on first use (``kernels/_build.py``);
+``_event_loop_plain`` is the numpy reference it is held to. On every
+table here both give the same establishment times, compared as float64
+bits, the same work counts (``events``, ``tested``, ``flows``), or the
+same error. The tables are seeded and random, in every mode the loop has:
+work-conserving and priority-guard, releases, seeded horizons, per-flow
+delays, ``t0``, exact ties and service times below the time's ulp.
+"""
+import numpy as np
+import pytest
+
+import repro_torch.core as port
+import repro_torch.core.engine as port_engine
+from repro_torch import obs
+from repro_torch.kernels import _build, event_loop
+
+
+GUARDS = pytest.mark.parametrize("guard", [False, True],
+                                 ids=["work-conserving", "priority-guard"])
+
+
+def _outcome(fn):
+    """``(t_est as int64 bits, stats)`` of a loop call, or its error."""
+    stats = {}
+    try:
+        t_est = fn(stats)
+    except (RuntimeError, IndexError) as exc:
+        return type(exc).__name__, str(exc)
+    return t_est.view(np.int64).tolist(), stats
+
+
+def _assert_same(rin, rout, srv, core, delta, n_res, n_ports, **kw):
+    """The compiled loop gives the plain loop's outcome bit for bit,
+    called directly and through ``_event_loop``; returns that outcome."""
+    args = (rin, rout, srv, core, delta, n_res, n_ports)
+    kw.setdefault("t0", 0.0)
+    kw.setdefault("guard", False)
+
+    def compiled(stats):
+        out = event_loop.event_loop_compiled(
+            *args, kw["t0"], kw["guard"], kw.get("release"),
+            kw.get("free_in0"), kw.get("free_out0"))
+        port_engine._add_counts(stats, *out[1])
+        return out[0]
+
+    got = _outcome(compiled)
+    want = _outcome(lambda st: port_engine._event_loop_plain(
+        *args, stats=st, **kw))
+    assert got == want
+    via_dispatch = _outcome(lambda st: port_engine._event_loop(
+        *args, stats=st, **kw))
+    assert via_dispatch == want
+    return want
+
+
+def _table(seed, *, K=3, N=5, F=80, srv="exp", rates=None):
+    """Random flows on K cores of N ports: ``(rin, rout, srv, core)``."""
+    rng = np.random.default_rng(seed)
+    core = rng.integers(0, K, F)
+    rin = core * N + rng.integers(0, N, F)
+    rout = core * N + rng.integers(0, N, F)
+    if srv == "exp":
+        s = rng.exponential(4.0, F)
+    else:  # integer sizes over per-core rates: completions tie exactly
+        size = rng.integers(1, 6, F).astype(np.float64) * 10.0
+        s = size / np.asarray(rates, dtype=np.float64)[core]
+    return rin, rout, s, core
+
+
+@GUARDS
+@pytest.mark.parametrize("seed", range(4))
+def test_random_tables(seed, guard):
+    rin, rout, srv, core = _table(seed)
+    out = _assert_same(rin, rout, srv, core, 8.0, 15, 5, guard=guard)
+    assert out[1]["flows"] == rin.size
+
+
+@GUARDS
+@pytest.mark.parametrize("t0", [0.0, 3.0, 12.5])
+@pytest.mark.parametrize("seed", range(3))
+def test_releases(seed, t0, guard):
+    """Release times on a grid, so some equal each other, ``t0`` and the
+    completion times exactly."""
+    rin, rout, srv, core = _table(seed + 10, srv="ints",
+                                  rates=[10.0, 10.0, 10.0])
+    rel = np.random.default_rng(seed).integers(0, 30, rin.size) * 1.0
+    _assert_same(rin, rout, srv, core, 2.0, 15, 5, guard=guard, t0=t0,
+                 release=rel)
+
+
+@GUARDS
+@pytest.mark.parametrize("with_release", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_seeded_horizons(seed, with_release, guard):
+    """Horizons after ``t0`` wake the loop; ``+inf`` (a failed core, no
+    flow on it) and those at or before ``t0`` do not."""
+    rng = np.random.default_rng(seed + 20)
+    K, N, t0 = 3, 5, 10.0
+    rin, rout, srv, core = _table(seed + 20, K=K, N=N)
+    keep = core != 0
+    rin, rout, srv, core = rin[keep], rout[keep], srv[keep], core[keep]
+    fin = np.where(rng.random(K * N) < 0.5, rng.integers(0, 40, K * N), 0.0)
+    fout = np.where(rng.random(K * N) < 0.5, rng.integers(0, 40, K * N), 0.0)
+    fin[:N] = np.inf
+    fout[:N] = np.inf
+    fin[N] = t0  # a horizon at t0 exactly
+    fout[N + 1] = 5.0  # and one before it
+    rel = (rng.integers(10, 50, rin.size) * 1.0) if with_release else None
+    _assert_same(rin, rout, srv, core, 8.0, K * N, N, guard=guard, t0=t0,
+                 release=rel, free_in0=fin, free_out0=fout)
+
+
+@GUARDS
+@pytest.mark.parametrize("t0", [0.0, 7.5])
+@pytest.mark.parametrize("seed", range(3))
+def test_per_flow_delays(seed, t0, guard):
+    rin, rout, srv, core = _table(seed + 30)
+    d_f = np.random.default_rng(seed).uniform(0.0, 10.0, rin.size)
+    _assert_same(rin, rout, srv, core, d_f, 15, 5, guard=guard, t0=t0)
+
+
+@GUARDS
+@pytest.mark.parametrize("seed", range(3))
+def test_equal_rate_cores_tie_exactly(seed, guard):
+    """Equal rates and integer sizes: many flows complete at one time, on
+    several cores at once."""
+    rin, rout, srv, core = _table(seed + 40, K=4, N=4, F=120, srv="ints",
+                                  rates=[10.0] * 4)
+    out = _assert_same(rin, rout, srv, core, 8.0, 16, 4, guard=guard)
+    t_est = np.asarray(out[0]).view(np.float64)
+    assert np.unique(t_est).size < t_est.size  # ties happened
+
+
+@GUARDS
+@pytest.mark.parametrize("share", [0.1, 0.6])
+@pytest.mark.parametrize("seed", range(3))
+def test_service_below_the_ulp_of_t(seed, share, guard):
+    """delta 0 and a share of service times far below ``ulp(t)``: such a
+    completion time equals its establishment time, so the flow frees its
+    resources at the event it starts in. Under the guard that is often a
+    deadlock (nothing else wakes the loop), which both loops raise."""
+    rng = np.random.default_rng(seed + 50)
+    rin, rout, _, core = _table(seed + 50, K=2, N=3, F=40)
+    srv = np.where(rng.random(rin.size) < share, 1e-12, 1.0)
+    t0 = 1e6
+    assert t0 + 1e-12 == t0
+    _assert_same(rin, rout, srv, core, 0.0, 6, 3, guard=guard, t0=t0)
+
+
+@GUARDS
+@pytest.mark.parametrize("F", [0, 1, 2])
+def test_tiny_tables(F, guard):
+    rin, rout, srv, core = _table(60 + F, F=F)
+    out = _assert_same(rin, rout, srv, core, 8.0, 15, 5, guard=guard)
+    assert out[1]["flows"] == F
+    if F == 0:
+        assert out == ([], {"events": 0, "tested": 0, "flows": 0})
+
+
+@GUARDS
+@pytest.mark.parametrize("with_release", [False, True])
+def test_one_resource(with_release, guard):
+    """Every flow on the one ingress and the one egress resource."""
+    F = 12
+    srv = np.random.default_rng(70).exponential(2.0, F)
+    zero = np.zeros(F, dtype=np.int64)
+    rel = np.arange(F, dtype=np.float64)[::-1] * 1.5 if with_release else None
+    out = _assert_same(zero, zero, srv, zero, 1.0, 1, 1, guard=guard,
+                       release=rel)
+    assert out[1]["events"] >= F
+
+
+@GUARDS
+def test_deadlock_raises_as_the_numpy_loop(guard):
+    """Seeded horizons all ``+inf`` never wake the loop: both raise."""
+    rin, rout, srv, core = _table(80)
+    inf = np.full(15, np.inf)
+    out = _assert_same(rin, rout, srv, core, 8.0, 15, 5, guard=guard,
+                       free_in0=inf, free_out0=inf.copy())
+    assert out == ("RuntimeError",
+                   "scheduler deadlock: pending flows but no events")
+
+
+@pytest.fixture(scope="module")
+def plan_m48_table():
+    """A ``plan_m48``-sized table (about 38,000 flows): 48 trace coflows
+    at N=150 on ``fb150_k16``'s rates, built as
+    ``test_counts_bound_the_work_of_a_plan_m48_shaped_instance`` builds
+    its instance."""
+    K, N = 16, 150
+    inst = port.sample_instance(port.synth_fb_trace(526, seed=2026), N=N,
+                                M=48, rates=[10.0, 20.0, 30.0] * 5 + [10.0],
+                                delta=8.0, seed=7, device="cpu")
+    table = port.build_flow_table(inst, port.order_coflows(inst), "ours")
+    core = table.core.numpy()
+    srv = (table.size / inst.rates[table.core]).numpy()
+    return ((core * N + table.fi.numpy(), core * N + table.fj.numpy(), srv,
+             core, 8.0, K * N, N))
+
+
+def test_a_plan_m48_sized_table(plan_m48_table):
+    out = _assert_same(*plan_m48_table)
+    assert out[1]["flows"] > 30_000
+    assert out[1]["events"] <= out[1]["flows"] <= out[1]["tested"]
+
+
+# -- inputs outside the loop's domain, and other dtypes ----------------------
+
+def _small():
+    return _table(90, K=2, N=3, F=20)
+
+
+def _with(base, at, value):
+    """A copy of ``base`` with ``value`` at ``at``."""
+    a = base.copy()
+    a[at] = value
+    return a
+
+
+INVALID = {
+    "a NaN service time": lambda r, o, s, c: (
+        (r, o, _with(s, 7, np.nan), c, 8.0, 6, 3), {}),
+    "a NaN delay": lambda r, o, s, c: ((r, o, s, c, np.nan, 6, 3), {}),
+    "a NaN release": lambda r, o, s, c: (
+        (r, o, s, c, 8.0, 6, 3), {"release": _with(np.zeros(20), 5, np.nan)}),
+    "a resource id out of range": lambda r, o, s, c: (
+        (r, _with(o, 3, 6), s, c, 8.0, 6, 3), {}),
+    "a negative resource id": lambda r, o, s, c: (
+        (_with(r, 0, -1), o, s, c, 8.0, 6, 3), {}),
+    "a negative t0": lambda r, o, s, c: ((r, o, s, c, 8.0, 6, 3),
+                                         {"t0": -4.0}),
+}
+
+
+@GUARDS
+@pytest.mark.parametrize("case", list(INVALID))
+def test_inputs_outside_the_domain_raise(case, guard):
+    """An id out of range, a NaN or a negative ``t0`` is refused with a
+    ``ValueError``, by the loop and through ``_event_loop``."""
+    args, kw = INVALID[case](*_small())
+    with pytest.raises(ValueError, match="out of range, a NaN, or a "
+                                         "negative t0"):
+        port_engine._event_loop(*args, guard=guard, **kw)
+
+
+def test_a_core_out_of_range_raises_under_the_guard():
+    r, o, s, c = _small()
+    args = (r, o, s, _with(c, 2, 5), 8.0, 6, 3)
+    with pytest.raises(ValueError, match="out of range"):
+        port_engine._event_loop(*args, guard=True)
+
+
+OTHER_DTYPES = {
+    "uint16 ids": lambda r, o, s, c: ((r.astype(np.uint16),
+                                       o.astype(np.uint16), s,
+                                       c.astype(np.uint16), 8.0, 6, 3), {}),
+    "integer delay": lambda r, o, s, c: ((r, o, s, c, 8, 6, 3), {}),
+    "int32 ids": lambda r, o, s, c: ((r.astype(np.int32), o.astype(np.int32),
+                                      s, c.astype(np.int32), 8.0, 6, 3), {}),
+}
+
+
+@GUARDS
+@pytest.mark.parametrize("case", list(OTHER_DTYPES))
+def test_other_dtypes_are_read_as_the_numpy_loop_reads_them(case, guard):
+    """Integer ids of another width and an integer delay give the numpy
+    loop's outcome bit for bit: both compute in int64 and float64."""
+    args, kw = OTHER_DTYPES[case](*_small())
+    _assert_same(*args, guard=guard, **kw)
+
+
+# -- the build and the dispatch ------------------------------------------------
+
+def test_the_host_target_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
+    (tmp_path / "k.cpp").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._sources("k") == [tmp_path / "k.cpp"]
+    before = _build._target("k")
+    assert _build._target("k") == before
+    (tmp_path / "k.cpp").write_text("// k, edited\n")
+    edited = _build._target("k")
+    assert edited != before
+    monkeypatch.setattr(_build, "HOST_FLAGS", _build.HOST_FLAGS + ("-g",))
+    assert _build._target("k") != edited
+
+
+def test_the_host_flags_round_as_numpy_does():
+    flags = _build.flags(event_loop.SOURCE)
+    assert flags == _build.HOST_FLAGS
+    assert "-ffp-contract=off" in flags
+    assert not {"-ffast-math", "-Ofast", "-funsafe-math-optimizations"} \
+        & set(flags)
+    assert _build._source(event_loop.SOURCE).suffix == ".cpp"
+
+
+def _loop_attrs(scheduling):
+    inst = port.sample_instance(port.synth_fb_trace(120, seed=11), N=8, M=10,
+                                rates=[10.0, 20.0, 30.0], delta=8.0, seed=5,
+                                device="cpu")
+    tr = obs.Tracer()
+    prev = obs.set_tracer(tr)
+    try:
+        s = port.run_fast(inst, scheduling=scheduling)
+    finally:
+        obs.set_tracer(prev)
+    loop = next(r for r in tr.records if r["kind"] == "span"
+                and r["name"] == "fast/event_loop")
+    return s, loop["attrs"]
+
+
+@pytest.fixture
+def fresh_entry():
+    event_loop.entry.cache_clear()
+    yield
+    event_loop.entry.cache_clear()
+
+
+@pytest.mark.parametrize("scheduling", ["work-conserving", "priority-guard",
+                                        "sunflow", "reserving"])
+def test_the_span_says_which_loop_ran(scheduling, fresh_entry):
+    _, attrs = _loop_attrs(scheduling)
+    want = "numpy" if scheduling == "reserving" else "compiled"
+    assert attrs["impl"] == want
+
+
+@pytest.mark.parametrize("scheduling", ["work-conserving", "priority-guard",
+                                        "sunflow"])
+def test_a_failed_build_raises(scheduling, monkeypatch, fresh_entry):
+    """A build that fails stops the schedule, as a failed kernel build
+    does; no other loop stands in."""
+    def fail(name):
+        raise RuntimeError("c++ failed to build " + name)
+
+    monkeypatch.setattr(_build, "load", fail)
+    with pytest.raises(RuntimeError, match="failed to build event_loop_host"):
+        _loop_attrs(scheduling)

@@ -21,7 +21,8 @@ tracer (``obs.trace.current_tracer()``), with one child span a stage:
 ``fast/order``, ``fast/extract``, ``fast/assign``, ``fast/to_host`` (the
 service times and resource ids on the device and their copies to the
 host), ``fast/event_loop`` (the host loop, with its work counts
-``events``, ``tested`` and ``flows`` and its ``impl``), ``fast/to_device``
+``events``, ``tested`` and ``flows``, the compiled loop's ``visited``, and
+its ``impl``), ``fast/to_device``
 and ``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
 shared no-op span, and attributes are computed only behind ``span.live``.
 
@@ -227,12 +228,14 @@ def _by_resource(res_ids: np.ndarray, n_res: int) -> list[np.ndarray]:
 
 
 def _add_counts(stats: dict | None, events: int, tested: int,
-                flows: int) -> None:
-    """Add an event loop's work counts to ``stats`` (when given)."""
+                flows: int, visited: int | None = None) -> None:
+    """Add an event loop's work counts to ``stats`` (when given);
+    ``visited`` only where the loop counts it (the compiled one)."""
     if stats is not None:
         for key, n in (("events", events), ("tested", tested),
-                       ("flows", flows)):
-            stats[key] = stats.get(key, 0) + n
+                       ("flows", flows), ("visited", visited)):
+            if n is not None:
+                stats[key] = stats.get(key, 0) + n
 
 
 def _pop_next_event(events: list[float], t: float) -> float:
@@ -262,8 +265,9 @@ def _event_loop(
     """Merged event loop over all cores, compiled: the semantics, the
     arguments and the counts of :func:`_event_loop_plain`, bit for bit, in
     one call of the host library (``kernels/event_loop.py``), built on
-    first use. Raises a ``ValueError`` for an id out of range, a NaN or a
-    negative ``t0``."""
+    first use. ``stats`` also gets ``visited``: the flow rows the loop
+    read, finished ones included. Raises a ``ValueError`` for an id out of
+    range, a NaN or a negative ``t0``."""
     t_est, counts = compiled_loop.event_loop_compiled(
         rin, rout, srv, core, delta, n_res, n_ports, t0, guard, release,
         free_in0, free_out0)

@@ -15,8 +15,10 @@
 // whose free time still equals t: a resource's free time is the value of
 // its last write, and every write above t0 pushes an entry. The one value
 // no entry can name is +inf (a failed core's horizon is never seeded), so
-// an event at t = +inf scans as the numpy loop does. The work-conserving
-// flow lists keep a cursor past their leading finished flows.
+// an event at t = +inf scans as the numpy loop does. A work-conserving
+// event reads the flow lists of the resources it freed, drops each list's
+// finished flows as it reads it (so a flow is read at most once after it
+// starts), and sorts only the gathered flows whose resources are both free.
 //
 // Inputs outside the loop's domain (an id out of range, a NaN, t0 < 0,
 // where +0 and -0 may tie in the heap) return kInvalid, which the caller
@@ -77,6 +79,7 @@ struct Loop {
 
   double t;
   int64_t remaining, n_events = 1, n_tested = 0;
+  int64_t n_visited = 0;  // flow rows read, finished ones included
 
   Loop(int64_t F_, int64_t n_res_)
       : F(F_), n_res(n_res_), free_in(n_res_), free_out(n_res_),
@@ -154,9 +157,11 @@ struct Loop {
 
 // Every pending flow has a busy resource or an unreached release after an
 // event's fixed point, so the candidates of the next event are the flows on
-// the resources it frees and the flows it releases.
+// the resources it frees and the flows it releases. Each is counted as
+// tested, as the numpy loop counts it; only those free at t enter the sort.
 int Loop::work_conserving() {
-  // flows by resource, in priority (index) order
+  // flows by resource, in priority (index) order; the pending flows of
+  // resource r are flows[off[r] .. end[r])
   std::vector<int64_t> in_off(n_res + 1, 0), out_off(n_res + 1, 0);
   for (int64_t f = 0; f < F; ++f) {
     ++in_off[rin[f] + 1];
@@ -167,44 +172,50 @@ int Loop::work_conserving() {
     out_off[r + 1] += out_off[r];
   }
   std::vector<int64_t> in_flows(F), out_flows(F);
-  std::vector<int64_t> in_cur(in_off.begin(), in_off.end() - 1);
-  std::vector<int64_t> out_cur(out_off.begin(), out_off.end() - 1);
+  std::vector<int64_t> in_end(in_off.begin(), in_off.end() - 1);
+  std::vector<int64_t> out_end(out_off.begin(), out_off.end() - 1);
   for (int64_t f = 0; f < F; ++f) {
-    in_flows[in_cur[rin[f]]++] = f;
-    out_flows[out_cur[rout[f]]++] = f;
+    in_flows[in_end[rin[f]]++] = f;
+    out_flows[out_end[rout[f]]++] = f;
   }
-  std::copy(in_off.begin(), in_off.end() - 1, in_cur.begin());
-  std::copy(out_off.begin(), out_off.end() - 1, out_cur.begin());
 
   Marks taken(F);
   std::vector<int64_t> cand, next;
   cand.reserve(F);
   next.reserve(F);
-  for (int64_t f = 0; f < F; ++f)
-    if (!release || release[f] <= t) cand.push_back(f);
+  // a released flow, the first time this event reads it: tested, and a
+  // candidate when both its resources are free
+  auto take = [&](int64_t f) {
+    if ((!release || release[f] <= t) && taken.mark(f)) {
+      ++n_tested;
+      if (free_at_t(f)) cand.push_back(f);
+    }
+  };
+  // at t0 every flow is read, in priority order
+  taken.next();
+  n_visited += F;
+  for (int64_t f = 0; f < F; ++f) take(f);
 
+  // takes the pending flows of the freed resources, dropping finished ones
+  // from each list in place
   auto gather = [&](const std::vector<int64_t>& freed_r,
                     const std::vector<int64_t>& off,
-                    const std::vector<int64_t>& flows,
-                    std::vector<int64_t>& cur) {
+                    std::vector<int64_t>& flows,
+                    std::vector<int64_t>& end) {
     for (int64_t r : freed_r) {
-      int64_t k = cur[r];
-      const int64_t end = off[r + 1];
-      while (k < end && done[flows[k]]) ++k;
-      cur[r] = k;
-      for (; k < end; ++k) {
+      int64_t w = off[r];
+      for (int64_t k = off[r]; k < end[r]; ++k) {
         const int64_t f = flows[k];
-        if (!done[f] && taken.mark(f)) cand.push_back(f);
+        if (done[f]) continue;
+        flows[w++] = f;
+        take(f);
       }
+      n_visited += end[r] - off[r];
+      end[r] = w;
     }
   };
 
   for (;;) {
-    n_tested += static_cast<int64_t>(cand.size());
-    next.clear();
-    for (int64_t f : cand)
-      if (free_at_t(f)) next.push_back(f);
-    cand.swap(next);
     // the fixed point: start every candidate first on both its resources
     // among the free candidates, until none is left
     while (!cand.empty()) {
@@ -226,17 +237,12 @@ int Loop::work_conserving() {
     if (!next_event()) return kDeadlock;
     cand.clear();
     taken.next();
-    gather(freed_in, in_off, in_flows, in_cur);
-    gather(freed_out, out_off, out_flows, out_cur);
+    gather(freed_in, in_off, in_flows, in_end);
+    gather(freed_out, out_off, out_flows, out_end);
     for_released_at_t([&](int64_t f) {
-      if (!done[f] && taken.mark(f)) cand.push_back(f);
+      ++n_visited;
+      if (!done[f]) take(f);
     });
-    if (release) {
-      size_t n = 0;
-      for (int64_t f : cand)
-        if (release[f] <= t) cand[n++] = f;
-      cand.resize(n);
-    }
     std::sort(cand.begin(), cand.end());
   }
   return kOk;
@@ -274,6 +280,7 @@ int Loop::priority_guard() {
         pend.insert(pend.end(), pending[c].begin(), pending[c].end());
       if (active.size() > 1) std::sort(pend.begin(), pend.end());
     }
+    n_visited += static_cast<int64_t>(pend.size());
     if (release) {
       size_t n = 0;
       for (int64_t f : pend)
@@ -322,9 +329,11 @@ bool any_nan(const double* v, int64_t n) {
 
 }  // namespace
 
-// Establishment times t_est (F,) and counts {events, tested, flows} of the
-// merged event loop over flows in priority order. rin/rout are resource
-// ids (core * n_ports + port); core is read only when guard is set.
+// Establishment times t_est (F,) and counts {events, tested, flows,
+// visited} of the merged event loop over flows in priority order; visited
+// is the flow rows the loop read, finished ones included (the numpy loop
+// has no such count). rin/rout are resource ids (core * n_ports + port);
+// core is read only when guard is set.
 // delta_f (per flow) replaces delta when not null; release (per flow) and
 // the seeded horizons free_in0/free_out0 (per resource, both or neither)
 // may be null. Returns kOk, kDeadlock (pending flows but no event left),
@@ -335,7 +344,7 @@ extern "C" int event_loop_host(
     const double* delta_f, int64_t n_res, int64_t n_ports, double t0,
     int guard, const double* release, const double* free_in0,
     const double* free_out0, double* t_est, int64_t* counts) {
-  counts[0] = counts[1] = counts[2] = 0;
+  counts[0] = counts[1] = counts[2] = counts[3] = 0;
   if (n_flows == 0) return kOk;
   if (n_flows < 0 || n_res <= 0 || std::isnan(t0) || t0 < 0.0 ||
       (free_in0 == nullptr) != (free_out0 == nullptr))
@@ -397,6 +406,7 @@ extern "C" int event_loop_host(
     counts[0] = L.n_events;
     counts[1] = L.n_tested;
     counts[2] = n_flows;
+    counts[3] = L.n_visited;
     return kOk;
   } catch (...) {
     return kFailed;

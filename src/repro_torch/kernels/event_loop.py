@@ -53,9 +53,11 @@ def _vec(a, n: int, dtype, what: str) -> np.ndarray:
 
 def event_loop_compiled(rin, rout, srv, core, delta, n_res, n_ports, t0,
                         guard, release, free_in0, free_out0):
-    """``(t_est, (events, tested, flows))`` of the compiled loop, with the
-    arguments of ``core.engine._event_loop``. Ids are read as int64 and
-    times as float64, the dtypes every caller passes.
+    """``(t_est, (events, tested, flows, visited))`` of the compiled loop,
+    with the arguments of ``core.engine._event_loop``. The first three
+    counts are the numpy loop's; ``visited`` is the flow rows the loop
+    read, finished ones included. Ids are read as int64 and times as
+    float64, the dtypes every caller passes.
 
     Raises the numpy loop's ``RuntimeError`` on a deadlock, and a
     ``ValueError`` for an id out of range, a NaN or a negative ``t0``.
@@ -80,7 +82,7 @@ def event_loop_compiled(rin, rout, srv, core, delta, n_res, n_ports, t0,
         free_in0 = _vec(free_in0, n_res, np.float64, "free_in0")
         free_out0 = _vec(free_out0, n_res, np.float64, "free_out0")
     t_est = np.empty(F)
-    counts = np.zeros(3, dtype=np.int64)
+    counts = np.zeros(4, dtype=np.int64)
     rc = fn(F, _ptr(rin), _ptr(rout), _ptr(srv), _ptr(core), d,
             _ptr(d_vec), n_res, n_ports, float(t0), int(bool(guard)),
             _ptr(release), _ptr(free_in0), _ptr(free_out0), _ptr(t_est),

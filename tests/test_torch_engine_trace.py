@@ -3,7 +3,7 @@
 ``run_fast``, ``run_fast_online`` and ``run_fast_metrics`` open one
 ``fast/run`` span a call on the process-wide tracer, with a child span a
 stage; ``fast/event_loop`` carries the loop's ``events``, ``tested`` and
-``flows`` and which loop ran (``impl``). Tracing observes only: every schedule is bit for bit the one
+``flows``, the compiled loop's ``visited``, and which loop ran (``impl``). Tracing observes only: every schedule is bit for bit the one
 the tracer-off run gives. While ``torch``'s profiler records, each span is
 also a profiler range of its name, so the spans sit on the profiler's
 clock.
@@ -104,11 +104,13 @@ def test_spans_nest_under_one_run_and_schedules_stay_bitwise(entry,
     assert by["fast/assign"]["attrs"] == {
         "path": "kernel" if backend == "kernel" else "host", "flows": n_flows}
     loop = by["fast/event_loop"]["attrs"]
-    assert set(loop) == {"events", "tested", "flows", "impl"}
+    assert set(loop) == {"events", "tested", "flows", "impl"} | (
+        {"visited"} if loop["impl"] == "compiled" else set())
     assert loop["impl"] == ("numpy" if scheduling == "reserving"
                             else _compiled_impl())
     assert loop["flows"] == n_flows
     assert loop["tested"] >= loop["flows"] and loop["events"] >= 1
+    assert loop.get("visited", loop["tested"]) >= loop["tested"]
     order = [r["name"] for r in sorted(spans, key=lambda r: r["ts"])]
     assert order == ["fast/run", "fast/order", "fast/extract", "fast/assign",
                      "fast/to_host", "fast/event_loop", "fast/to_device",
@@ -163,23 +165,29 @@ def test_counts_of_three_flows_on_one_ingress_port(guard):
     one. At 0 the first of core 0 and core 1's flow start (4 tested); core
     0's port frees at 2 (its 2 pending flows tested, one starts), core 1's
     at 3 (none tested: no pending flow uses it), core 0's again at 5 (the
-    last). Both policies count the same here: all of core 0's flows share
-    the port."""
+    last). Both policies test the same here: all of core 0's flows share
+    the port. Work-conserving reads the freed resources' lists: 4 rows at
+    0, then 3 + 1 at 2, 1 + 1 at 3, 2 + 1 at 5; the guard reads its
+    pending rows, 4 + 2 + 0 + 1."""
     t_est, stats = _loop_case([(0, 0, 0), (0, 0, 1), (0, 0, 2), (1, 0, 0)],
                               [1.0, 2.0, 3.0, 2.0], n_ports=3, K=2,
                               guard=guard)
     np.testing.assert_array_equal(t_est, [0.0, 2.0, 5.0, 0.0])
-    assert stats == {"events": 4, "tested": 7, "flows": 4}
+    assert stats == {"events": 4, "tested": 7, "flows": 4,
+                     "visited": 7 if guard else 13}
 
 
 @pytest.mark.parametrize("guard,t_want,counts", [
-    (False, [0.0, 2.0, 0.0], {"events": 2, "tested": 4, "flows": 3}),
-    (True, [0.0, 2.0, 4.0], {"events": 3, "tested": 6, "flows": 3})])
+    (False, [0.0, 2.0, 0.0],
+     {"events": 2, "tested": 4, "flows": 3, "visited": 9}),
+    (True, [0.0, 2.0, 4.0],
+     {"events": 3, "tested": 6, "flows": 3, "visited": 6})])
 def test_counts_where_the_guard_holds_a_port(guard, t_want, counts):
     """Flows 0->0, 0->1, 1->1 on one core, each 1 long. Work-conserving
-    backfills 1->1 at 0 (3 tested), then at 2 tests the one left; the
+    backfills 1->1 at 0 (3 tested), then at 2 tests the one left, reading
+    all four lists the two completions free (2 + 1 + 1 + 2 rows); the
     guard keeps 1->1 off egress 1, which 0->1 holds, so it tests both at 2
-    and the last again at 4."""
+    and the last again at 4, reading only its pending rows."""
     t_est, stats = _loop_case([(0, 0, 0), (0, 0, 1), (0, 1, 1)],
                               [1.0, 1.0, 1.0], n_ports=2, K=1, guard=guard)
     np.testing.assert_array_equal(t_est, t_want)
@@ -200,6 +208,21 @@ def test_counts_bound_the_work_of_a_plan_m48_shaped_instance(scheduling):
     assert n["flows"] == s.n_flows > 0
     assert n["events"] >= np.unique(s.t_establish.numpy()).size
     assert n["tested"] >= n["flows"]
+    assert n["visited"] >= n["tested"]
+
+
+def test_a_started_row_is_read_once_more_on_its_list():
+    """One core of 3 ports, work-conserving. 1->1 starts at 0 (until 11)
+    and holds egress 1, so 0->1 waits and 0->0, behind it on ingress 0,
+    starts at 0 (until 2). At 2 ingress 0's list [0->1, 0->0, 0->2] is
+    read whole, 0->0 is dropped from it and 0->2 starts (until 4); at 4
+    the list is [0->1, 0->2], and 0->0 is not read again. Rows read: 4 at
+    0; 3 + 1 at 2; 2 + 1 at 4; 1 + 2 at 11, where 0->1 starts."""
+    t_est, stats = _loop_case([(0, 1, 1), (0, 0, 1), (0, 0, 0), (0, 0, 2)],
+                              [10.0, 1.0, 1.0, 1.0], n_ports=3, K=1,
+                              guard=False)
+    np.testing.assert_array_equal(t_est, [0.0, 11.0, 0.0, 2.0])
+    assert stats == {"events": 4, "tested": 8, "flows": 4, "visited": 14}
 
 
 def test_sunflow_adds_its_groups_counts(monkeypatch):
@@ -213,7 +236,7 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
         out = loop(*a, stats=mine, **k)
         own.append(mine)
         port_engine._add_counts(stats, mine["events"], mine["tested"],
-                                mine["flows"])
+                                mine["flows"], mine["visited"])
         return out
 
     monkeypatch.setattr(port_engine, "_event_loop", counted)
@@ -222,7 +245,8 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
                       if r["name"] == "fast/event_loop")["attrs"]
     assert len(own) > 1
     assert loop_attrs == {**{k: sum(c[k] for c in own)
-                             for k in ("events", "tested", "flows")},
+                             for k in ("events", "tested", "flows",
+                                       "visited")},
                           "impl": _compiled_impl()}
     assert loop_attrs["flows"] == s.n_flows
 

@@ -7,7 +7,9 @@ table here both give the same establishment times, compared as float64
 bits, the same work counts (``events``, ``tested``, ``flows``), or the
 same error. The tables are seeded and random, in every mode the loop has:
 work-conserving and priority-guard, releases, seeded horizons, per-flow
-delays, ``t0``, exact ties and service times below the time's ulp.
+delays, ``t0``, exact ties and service times below the time's ulp. The
+compiled loop's own count, ``visited`` (the flow rows it read), is at
+least ``tested`` on every table.
 """
 import numpy as np
 import pytest
@@ -32,9 +34,19 @@ def _outcome(fn):
     return t_est.view(np.int64).tolist(), stats
 
 
+def _visited(outcome):
+    """``outcome`` without the compiled loop's ``visited`` count, and that
+    count (``None`` for an error)."""
+    if not isinstance(outcome[1], dict):
+        return outcome, None
+    stats = dict(outcome[1])
+    return (outcome[0], stats), stats.pop("visited")
+
+
 def _assert_same(rin, rout, srv, core, delta, n_res, n_ports, **kw):
     """The compiled loop gives the plain loop's outcome bit for bit,
-    called directly and through ``_event_loop``; returns that outcome."""
+    called directly and through ``_event_loop``, and reads at least the
+    rows it tests; returns the plain loop's outcome."""
     args = (rin, rout, srv, core, delta, n_res, n_ports)
     kw.setdefault("t0", 0.0)
     kw.setdefault("guard", False)
@@ -46,13 +58,16 @@ def _assert_same(rin, rout, srv, core, delta, n_res, n_ports, **kw):
         port_engine._add_counts(stats, *out[1])
         return out[0]
 
-    got = _outcome(compiled)
+    got, visited = _visited(_outcome(compiled))
     want = _outcome(lambda st: port_engine._event_loop_plain(
         *args, stats=st, **kw))
     assert got == want
-    via_dispatch = _outcome(lambda st: port_engine._event_loop(
-        *args, stats=st, **kw))
+    via_dispatch, via_visited = _visited(_outcome(
+        lambda st: port_engine._event_loop(*args, stats=st, **kw)))
     assert via_dispatch == want
+    assert via_visited == visited
+    if visited is not None:
+        assert visited >= want[1]["tested"]
     return want
 
 
@@ -205,6 +220,54 @@ def test_a_plan_m48_sized_table(plan_m48_table):
     out = _assert_same(*plan_m48_table)
     assert out[1]["flows"] > 30_000
     assert out[1]["events"] <= out[1]["flows"] <= out[1]["tested"]
+
+
+LONG_LISTS = {"K1-N4-F400": (1, 4, 400), "K3-N6-F900": (3, 6, 900)}
+
+
+@pytest.mark.parametrize("mode", ["plain", "releases", "seeded"])
+@pytest.mark.parametrize("srv", ["exp", "ints"])
+@pytest.mark.parametrize("shape", list(LONG_LISTS))
+def test_long_lists_compacted_many_times(shape, srv, mode):
+    """Work-conserving on long per-port lists (100 flows a port), where
+    backfill starts flows behind pending ones: each list is read and
+    compacted at many events, with exact ties under integer sizes, with
+    releases, and with seeded horizons and releases."""
+    K, N, F = LONG_LISTS[shape]
+    rin, rout, s, core = _table(100 + K, K=K, N=N, F=F, srv=srv,
+                                rates=[10.0, 20.0, 30.0][:K])
+    rng = np.random.default_rng(F)
+    kw = {}
+    if mode != "plain":
+        kw["release"] = rng.integers(0, 60, F) * 1.0
+    if mode == "seeded":
+        kw["t0"] = 4.0
+        kw["free_in0"] = rng.integers(0, 30, K * N) * 1.0
+        kw["free_out0"] = rng.integers(0, 30, K * N) * 1.0
+    out = _assert_same(rin, rout, s, core, 2.0, K * N, N, **kw)
+    assert out[1]["flows"] == F
+    assert out[1]["tested"] > 5 * F  # each freed port offers many rows
+
+
+def test_the_offline_k3_cells_shape():
+    """A table shaped as ``offline_k3``'s: trace coflows at N=150 on the
+    paper's 3-core fabric (16 of them here, so the numpy twin stays
+    quick). The compiled loop reads about one row a row it tests: a
+    started row is read at most once more on each of its two lists."""
+    K, N = 3, 150
+    inst = port.sample_instance(port.synth_fb_trace(526, seed=2026), N=N,
+                                M=16, rates=[10.0, 20.0, 30.0], delta=8.0,
+                                seed=2 ** 31 + 11, device="cpu")
+    table = port.build_flow_table(inst, port.order_coflows(inst), "ours")
+    core = table.core.numpy()
+    srv = (table.size / inst.rates[table.core]).numpy()
+    args = (core * N + table.fi.numpy(), core * N + table.fj.numpy(), srv,
+            core, 8.0, K * N, N)
+    out = _assert_same(*args)
+    assert out[1]["flows"] > 5_000
+    stats = {}
+    port_engine._event_loop(*args, stats=stats)
+    assert stats["tested"] <= stats["visited"] <= 1.1 * stats["tested"]
 
 
 # -- inputs outside the loop's domain, and other dtypes ----------------------

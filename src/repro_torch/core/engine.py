@@ -15,15 +15,15 @@ place of pi) is
      back once;
   4. CCTs on the device (``scatter_reduce(..., "amax")``).
 
-Each call of :func:`run_fast`, :func:`run_fast_online` and
-:func:`run_fast_metrics` opens the span ``fast/run`` on the process-wide
-tracer (``obs.trace.current_tracer()``), with one child span a stage:
-``fast/order``, ``fast/extract``, ``fast/assign``, ``fast/to_host`` (the
-service times and resource ids on the device and their copies to the
-host), ``fast/event_loop`` (the host loop, with its work counts
-``events``, ``tested`` and ``flows``, the compiled loop's ``visited``, and
-its ``impl``), ``fast/to_device``
-and ``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
+:func:`run_fast`, :func:`run_fast_online` and :func:`run_fast_metrics`
+each make one call of :func:`_run_pipeline`, which opens the span
+``fast/run`` on the process-wide tracer (``obs.trace.current_tracer()``),
+with one child span a stage: ``fast/order``, ``fast/extract``,
+``fast/assign``, ``fast/to_host`` (the service times and resource ids on
+the device and their copies to the host), ``fast/event_loop`` (the host
+loop, with its work counts ``events``, ``tested`` and ``flows``, the
+compiled loop's ``visited``, and its ``impl``), ``fast/to_device`` and
+``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
 shared no-op span, and attributes are computed only behind ``span.live``.
 
 The event loops stay host code: sequential logic with no kernel in the
@@ -31,12 +31,12 @@ reference, where each event depends on the free times the last one wrote
 and does a few comparisons and one start. The circuit event loop
 (:func:`_event_loop`) runs compiled, as plain C++ built on first use by
 the host compiler (``kernels/event_loop.py``, ``csrc/event_loop_host.cpp``),
-in one foreign call a loop. Its numpy twin :func:`_event_loop_plain` is
-the reference the tests hold the compiled loop to bit for bit; it relies on
-numpy's last-write-wins fancy assignment with duplicate indices
-(``_first_occurrence``; torch's ``index_put_`` leaves that order
-undefined). The reserving loop and sunflow's per-group glue stay numpy.
-``fast/event_loop``'s ``impl`` says which loop the stage runs:
+in one foreign call a loop, with the semantics of the reference's
+``repro.core.engine._event_loop``. The test
+``tests/test_torch_event_loop_compiled.py`` holds it bit for bit to a
+numpy twin of that loop, which also counts its work, and to the
+reference itself. The reserving loop and sunflow's per-group glue stay
+numpy. ``fast/event_loop``'s ``impl`` says which loop the stage runs:
 ``"compiled"``, or ``"numpy"`` for the reserving loop.
 
 Completion times keep the reference's float associativity,
@@ -52,7 +52,6 @@ referee, and :func:`schedule_all_cores` schedules a dataclass
 from __future__ import annotations
 
 import dataclasses
-import heapq
 from functools import partial
 
 import numpy as np
@@ -61,7 +60,7 @@ import torch
 from repro_torch.kernels import event_loop as compiled_loop
 from repro_torch.kernels.ops import coflow_assign
 from repro_torch.kernels.ref import assign_ref
-from repro_torch.obs.trace import Span, current_tracer
+from repro_torch.obs.trace import current_tracer
 
 from .assignment import (Assignment, FlatAssignState, _host_f64, assign_fast,
                          assign_random, assign_rho_only, assign_tau_aware,
@@ -172,11 +171,7 @@ def build_flow_table(
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if delta_k is not None:
-        delta_k = _host_f64(delta_k)
-        if delta_k.shape != (inst.K,):
-            raise ValueError(
-                f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
+    delta_k = _drifted_delta_k(inst, delta_k)
     policy, _ = _resolve_algorithm(algorithm, "")
     tracer = current_tracer()
     with tracer.span("fast/extract") as sp:
@@ -185,8 +180,7 @@ def build_flow_table(
             sp.set(flows=int(flows[0].shape[0]))
     pos, cid, fi, fj, size = flows
     with tracer.span("fast/assign") as sp:
-        if (policy == "tau-aware" and delta_k is not None
-                and bool(np.any(delta_k != inst.delta))):
+        if policy == "tau-aware" and delta_k is not None:
             path = "drifted"
             st = FlatAssignState(policy, inst.rates, inst.delta, inst.N,
                                  seed=seed, locality=locality)
@@ -207,24 +201,19 @@ def build_flow_table(
     return FlowTable(pos=pos, cid=cid, fi=fi, fj=fj, core=core, size=size)
 
 
-def _first_occurrence(vals: np.ndarray, scratch: np.ndarray) -> np.ndarray:
-    """Boolean mask marking the first occurrence of each value, in order.
-
-    Writing positions in reverse leaves each slot of ``scratch`` holding the
-    *first* position of its value (numpy's fancy assignment keeps the last
-    write), so a flow is first on its resource iff the slot points back at
-    it. ``scratch`` is int64 with at least ``vals.max() + 1`` entries.
-    """
-    n = vals.size
-    scratch[vals[::-1]] = np.arange(n - 1, -1, -1)
-    return scratch[vals] == np.arange(n)
-
-
-def _by_resource(res_ids: np.ndarray, n_res: int) -> list[np.ndarray]:
-    """Flow indices using each resource, in priority (index) order."""
-    order = np.argsort(res_ids, kind="stable")
-    counts = np.bincount(res_ids, minlength=n_res)
-    return np.split(order, np.cumsum(counts)[:-1])
+def _drifted_delta_k(inst: Instance,
+                     delta_k: torch.Tensor | np.ndarray | None,
+                     ) -> np.ndarray | None:
+    """A per-core delay vector as a host float64 ``(K,)`` array, or
+    ``None`` where it is ``None`` or nominal on every core, so the
+    undrifted pipeline keeps its exact scalar float expressions."""
+    if delta_k is None:
+        return None
+    delta_k = _host_f64(delta_k)
+    if delta_k.shape != (inst.K,):
+        raise ValueError(
+            f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
+    return None if np.all(delta_k == inst.delta) else delta_k
 
 
 def _add_counts(stats: dict | None, events: int, tested: int,
@@ -236,15 +225,6 @@ def _add_counts(stats: dict | None, events: int, tested: int,
                        ("flows", flows), ("visited", visited)):
             if n is not None:
                 stats[key] = stats.get(key, 0) + n
-
-
-def _pop_next_event(events: list[float], t: float) -> float:
-    """Earliest completion strictly after t (``events`` is a heap)."""
-    while events and events[0] <= t:
-        heapq.heappop(events)
-    if not events:
-        raise RuntimeError("scheduler deadlock: pending flows but no events")
-    return heapq.heappop(events)
 
 
 def _event_loop(
@@ -262,179 +242,20 @@ def _event_loop(
     free_out0: np.ndarray | None = None,
     stats: dict | None = None,
 ) -> np.ndarray:
-    """Merged event loop over all cores, compiled: the semantics, the
-    arguments and the counts of :func:`_event_loop_plain`, bit for bit, in
-    one call of the host library (``kernels/event_loop.py``), built on
-    first use. ``stats`` also gets ``visited``: the flow rows the loop
-    read, finished ones included. Raises a ``ValueError`` for an id out of
+    """Merged event loop over all cores, flows in priority order,
+    compiled: the arguments and the establishment times of the reference's
+    ``repro.core.engine._event_loop``, bit for bit, in one call of the host
+    library (``kernels/event_loop.py``), built on first use; ``t0`` is read
+    as a float64. ``stats`` gets the loop's work added under ``events``
+    (the times it woke at an event time, the start at ``t0`` included),
+    ``tested`` (the candidate rows that entered the feasibility test),
+    ``flows`` (the flows started) and ``visited`` (the flow rows it read,
+    finished ones included). Raises a ``ValueError`` for an id out of
     range, a NaN or a negative ``t0``."""
     t_est, counts = compiled_loop.event_loop_compiled(
         rin, rout, srv, core, delta, n_res, n_ports, t0, guard, release,
         free_in0, free_out0)
     _add_counts(stats, *counts)
-    return t_est
-
-
-def _event_loop_plain(
-    rin: np.ndarray,    # (F,) int64 ingress resource ids (core*N + i)
-    rout: np.ndarray,   # (F,) int64 egress resource ids (core*N + j)
-    srv: np.ndarray,    # (F,) float64 service times size/rate[core]
-    core: np.ndarray,   # (F,) int64
-    delta: float | np.ndarray,
-    n_res: int,
-    n_ports: int,
-    t0: float = 0.0,
-    guard: bool = False,
-    release: np.ndarray | None = None,
-    free_in0: np.ndarray | None = None,
-    free_out0: np.ndarray | None = None,
-    stats: dict | None = None,
-) -> np.ndarray:
-    """Merged event loop over all cores in numpy; flows in priority order.
-    The reference the compiled :func:`_event_loop` is held to in tests.
-
-    Returns t_establish per flow, exactly as the reference's sequential
-    list scan: at each event the started set is {flows whose two resources
-    are free and which are the first pending user of both}, iterated to a
-    fixed point for ``guard=False`` (work-conserving), single-pass for
-    ``guard=True`` (priority-guard: a pending higher-priority flow holds
-    both its resources whether or not it starts).
-
-    Work-conserving: after each event's fixed point every pending flow has
-    a busy resource or an unreached release, so only flows on resources
-    freed exactly at the next event, or released exactly then, can start;
-    candidates come from those resources' flow lists and the release lists.
-    ``release`` (per flow) gates eligibility by the exact comparison
-    ``release <= t``; an unreleased flow never protects its ports under
-    ``guard=True``. Event times are copied verbatim from completion and
-    release times, so the exact float comparisons below are the convention,
-    not a hazard. ``t0`` is the time the resources free (the sunflow
-    barrier). ``delta`` is a scalar or a per-flow array (drifted cores).
-
-    ``free_in0``/``free_out0`` (per resource, both or neither) seed the port
-    horizons from circuits already committed by earlier service ticks
-    (``fabric.FabricState``): every horizon strictly after ``t0`` goes into
-    the event heap, so the loop wakes when a committed circuit tears down;
-    ``+inf`` horizons (a failed core's resources) are never seeded. With
-    ``None`` this is the from-scratch loop.
-
-    ``stats`` (a dict) gets the loop's work added under ``events`` (the
-    times it woke at an event time, the start at ``t0`` included),
-    ``tested`` (the candidate rows that entered the feasibility test: the
-    work-conserving candidates before the free-resource filter, the
-    guarded pending rows after the release filter, once an event) and
-    ``flows`` (the flows started, ``F``). Counting changes no comparison.
-    """
-    F = rin.size
-    t_est = np.full(F, -1.0)
-    if F == 0:
-        _add_counts(stats, 0, 0, 0)
-        return t_est
-    d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
-    if free_in0 is None:
-        free_in = np.full(n_res, t0)
-        free_out = np.full(n_res, t0)
-    else:
-        free_in = np.asarray(free_in0, dtype=np.float64).copy()
-        free_out = np.asarray(free_out0, dtype=np.float64).copy()
-    done = np.zeros(F, dtype=bool)
-    scratch = np.empty(n_res, dtype=np.int64)
-    events: list[float] = []  # heap of future completion and release times
-    if free_in0 is not None:
-        seed_in = free_in[(free_in > t0) & np.isfinite(free_in)]
-        seed_out = free_out[(free_out > t0) & np.isfinite(free_out)]
-        events = np.unique(np.concatenate([seed_in, seed_out])).tolist()
-    remaining = F
-    t = t0
-    n_events = 1
-    n_tested = 0
-    if release is not None:
-        rel_uniq, rel_inv = np.unique(release, return_inverse=True)
-        events.extend(rel_uniq.tolist())
-        heapq.heapify(events)
-        # flow indices grouped by release value, in priority order
-        rel_lists = np.split(np.argsort(rel_inv, kind="stable"),
-                             np.cumsum(np.bincount(rel_inv))[:-1])
-        rel_map = {float(v): lst for v, lst in zip(rel_uniq, rel_lists)}
-
-    if guard:
-        pending = np.arange(F)
-        first_event = True
-        while remaining:
-            if first_event:
-                pend = pending
-                first_event = False
-            else:
-                # Only cores with a completion (or a release) at t can
-                # start flows now.
-                act = np.zeros(n_res // n_ports, dtype=bool)
-                act[np.nonzero(free_in == t)[0] // n_ports] = True  # reprolint: disable=float-eq -- exact-float convention: t was copied verbatim from free_in (circuit_scheduler docstring)
-                act[np.nonzero(free_out == t)[0] // n_ports] = True  # reprolint: disable=float-eq -- exact-float convention: t was copied verbatim from free_out
-                if release is not None:
-                    act[core[pending[release[pending] == t]]] = True  # reprolint: disable=float-eq -- exact-float convention: event times are copied release values, never arithmetic
-                pend = pending[act[core[pending]]]
-            if release is not None and pend.size:
-                pend = pend[release[pend] <= t]
-            n_tested += pend.size
-            if pend.size:
-                ri, rj = rin[pend], rout[pend]
-                feas = ((free_in[ri] <= t) & (free_out[rj] <= t)
-                        & _first_occurrence(ri, scratch)
-                        & _first_occurrence(rj, scratch))
-                start = pend[feas]
-                if start.size:
-                    tc = (t + (delta if d_vec is None else d_vec[start])) \
-                        + srv[start]
-                    free_in[rin[start]] = tc
-                    free_out[rout[start]] = tc
-                    t_est[start] = t
-                    done[start] = True
-                    remaining -= start.size
-                    for v in tc.tolist():
-                        heapq.heappush(events, v)
-                    pending = pending[~done[pending]]
-                    if not remaining:
-                        break
-            t = _pop_next_event(events, t)
-            n_events += 1
-        _add_counts(stats, n_events, n_tested, F)
-        return t_est
-
-    in_lists = _by_resource(rin, n_res)
-    out_lists = _by_resource(rout, n_res)
-    cand = np.arange(F)  # at t0 every (released) flow is a candidate
-    if release is not None:
-        cand = cand[release[cand] <= t]
-    while remaining:
-        n_tested += cand.size
-        cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
-        while cand.size:
-            safe = _first_occurrence(rin[cand], scratch) \
-                & _first_occurrence(rout[cand], scratch)
-            start = cand[safe]
-            tc = (t + (delta if d_vec is None else d_vec[start])) + srv[start]
-            free_in[rin[start]] = tc
-            free_out[rout[start]] = tc
-            t_est[start] = t
-            done[start] = True
-            remaining -= start.size
-            for v in tc.tolist():
-                heapq.heappush(events, v)
-            cand = cand[~safe]
-            cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
-        if not remaining:
-            break
-        t = _pop_next_event(events, t)
-        n_events += 1
-        pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_in
-        pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]  # reprolint: disable=float-eq -- exact-float convention: t is popped verbatim from the event heap fed by free_out
-        if release is not None:
-            pool.append(rel_map.get(t, np.empty(0, np.int64)))
-        cand = np.unique(np.concatenate(pool)) if pool else np.empty(0, np.int64)
-        cand = cand[~done[cand]]
-        if release is not None:
-            cand = cand[release[cand] <= t]
-    _add_counts(stats, n_events, n_tested, F)
     return t_est
 
 
@@ -674,19 +495,10 @@ def schedule_all_cores(
 
 def _normalize_delta_k(inst: Instance, delta_k: torch.Tensor | np.ndarray | None,
                        ) -> np.ndarray | None:
-    """Validate a per-core delay vector (a host float64 array); an
-    all-nominal vector becomes ``None`` so the undrifted pipeline keeps its
-    exact scalar float expressions."""
-    if delta_k is None:
-        return None
-    delta_k = _host_f64(delta_k)
-    if delta_k.shape != (inst.K,):
-        raise ValueError(
-            f"delta_k must have shape ({inst.K},), got {delta_k.shape}")
-    if (delta_k < 0).any():
+    """:func:`_drifted_delta_k`, refusing a negative delay."""
+    delta_k = _drifted_delta_k(inst, delta_k)
+    if delta_k is not None and (delta_k < 0).any():
         raise ValueError("drifted delta must be >= 0")
-    if np.all(delta_k == inst.delta):
-        return None
     return delta_k
 
 
@@ -697,11 +509,44 @@ def _delta_f(inst: Instance, table: FlowTable,
     return torch.tensor(delta_k, device=inst.device)[table.core]
 
 
-def _run_attrs(sp: Span, inst: Instance, table: FlowTable, backend: str,
-               scheduling: str, *, online: bool, metrics_only: bool) -> None:
-    """The attributes of a live ``fast/run`` span."""
-    sp.set(flows=table.n_flows, coflows=inst.M, K=inst.K, backend=backend,
-           scheduling=scheduling, online=online, metrics_only=metrics_only)
+def _run_pipeline(inst: Instance, algorithm: str, *,
+                  releases: torch.Tensor | None, seed: int, scheduling: str,
+                  backend: str, delta_k: torch.Tensor | np.ndarray | None,
+                  locality: float, metrics_only: bool,
+                  ) -> tuple[Schedule | torch.Tensor, int]:
+    """The pipeline of :func:`run_fast` (``releases=None``, WSPT order) and
+    of :func:`run_fast_online` (``releases`` ``(M,)`` float64 on the
+    device, arrival order), stopped at the CCTs when ``metrics_only``:
+    returns ``(schedule or ccts, n_flows)``, under one ``fast/run`` span.
+    The stages are looked up as module globals at each call, since
+    ``perfbench/drivers/offline.py`` and ``perfbench/control.py`` replace
+    some of them on the module."""
+    tracer = current_tracer()
+    with tracer.span("fast/run") as sp:
+        delta_k = _normalize_delta_k(inst, delta_k)
+        with tracer.span("fast/order"):
+            if releases is None:
+                pi = order_coflows(inst)
+            else:
+                pi, _ = online_orders(inst, releases)
+        _, scheduling = _resolve_algorithm(algorithm, scheduling)
+        table = build_flow_table(inst, pi, algorithm, seed=seed,
+                                 backend=backend, delta_k=delta_k,
+                                 locality=locality)
+        t_est, srv = _times_for_table(inst, pi, table, scheduling,
+                                      releases=releases, delta_k=delta_k)
+        with tracer.span("fast/schedule"):
+            delta_f = _delta_f(inst, table, delta_k)
+            if metrics_only:
+                out = _ccts_from_times(inst, pi, table, t_est, srv, delta_f)
+            else:
+                out = _schedule_from_times(inst, pi, table, t_est, srv,
+                                           delta_f)
+        if sp.live:
+            sp.set(flows=table.n_flows, coflows=inst.M, K=inst.K,
+                   backend=backend, scheduling=scheduling,
+                   online=releases is not None, metrics_only=metrics_only)
+    return out, table.n_flows
 
 
 def run_fast(
@@ -729,24 +574,10 @@ def run_fast(
     with each core's delay; ``locality`` is the tau-aware batch-affinity
     bias. Either one runs the fp64 host backend.
     """
-    tracer = current_tracer()
-    with tracer.span("fast/run") as sp:
-        delta_k = _normalize_delta_k(inst, delta_k)
-        with tracer.span("fast/order"):
-            pi = order_coflows(inst)
-        _, scheduling = _resolve_algorithm(algorithm, scheduling)
-        table = build_flow_table(inst, pi, algorithm, seed=seed,
-                                 backend=backend, delta_k=delta_k,
-                                 locality=locality)
-        t_est, srv = _times_for_table(inst, pi, table, scheduling,
-                                      delta_k=delta_k)
-        with tracer.span("fast/schedule"):
-            sched = _schedule_from_times(inst, pi, table, t_est, srv,
-                                         _delta_f(inst, table, delta_k))
-        if sp.live:
-            _run_attrs(sp, inst, table, backend, scheduling, online=False,
-                       metrics_only=False)
-    return sched
+    return _run_pipeline(inst, algorithm, releases=None, seed=seed,
+                         scheduling=scheduling, backend=backend,
+                         delta_k=delta_k, locality=locality,
+                         metrics_only=False)[0]
 
 
 def run_fast_metrics(
@@ -764,29 +595,12 @@ def run_fast_metrics(
     :func:`run_fast_online` (``releases`` ``(M,)`` by original coflow id),
     stopped at the CCTs: returns ``(ccts (M,), n_flows)`` without building a
     ``Schedule``."""
-    tracer = current_tracer()
-    with tracer.span("fast/run") as sp:
-        with tracer.span("fast/order"):
-            if releases is None:
-                pi = order_coflows(inst)
-            else:
-                releases = torch.as_tensor(releases, dtype=torch.float64,
-                                           device=inst.device)
-                pi, _ = online_orders(inst, releases)
-        delta_k = _normalize_delta_k(inst, delta_k)
-        _, scheduling = _resolve_algorithm(algorithm, scheduling)
-        table = build_flow_table(inst, pi, algorithm, seed=seed,
-                                 backend=backend, delta_k=delta_k,
-                                 locality=locality)
-        t_est, srv = _times_for_table(inst, pi, table, scheduling, releases,
-                                      delta_k=delta_k)
-        with tracer.span("fast/schedule"):
-            ccts = _ccts_from_times(inst, pi, table, t_est, srv,
-                                    _delta_f(inst, table, delta_k))
-        if sp.live:
-            _run_attrs(sp, inst, table, backend, scheduling,
-                       online=releases is not None, metrics_only=True)
-    return ccts, table.n_flows
+    return _run_pipeline(
+        inst, algorithm,
+        releases=None if releases is None else torch.as_tensor(
+            releases, dtype=torch.float64, device=inst.device),
+        seed=seed, scheduling=scheduling, backend=backend, delta_k=delta_k,
+        locality=locality, metrics_only=True)
 
 
 def run_fast_online(
@@ -809,26 +623,10 @@ def run_fast_online(
     With all releases 0 the result equals :func:`run_fast`'s bit for bit.
     The schedule's ``pi`` is the arrival order.
     """
-    inst = oinst.inst
-    rel = oinst.releases
-    tracer = current_tracer()
-    with tracer.span("fast/run") as sp:
-        delta_k = _normalize_delta_k(inst, delta_k)
-        with tracer.span("fast/order"):
-            arrival, _ = online_orders(inst, rel)
-        _, scheduling = _resolve_algorithm(algorithm, scheduling)
-        table = build_flow_table(inst, arrival, algorithm, seed=seed,
-                                 backend=backend, delta_k=delta_k,
-                                 locality=locality)
-        t_est, srv = _times_for_table(inst, arrival, table, scheduling,
-                                      releases=rel, delta_k=delta_k)
-        with tracer.span("fast/schedule"):
-            sched = _schedule_from_times(inst, arrival, table, t_est, srv,
-                                         _delta_f(inst, table, delta_k))
-        if sp.live:
-            _run_attrs(sp, inst, table, backend, scheduling, online=True,
-                       metrics_only=False)
-    return sched
+    return _run_pipeline(oinst.inst, algorithm, releases=oinst.releases,
+                         seed=seed, scheduling=scheduling, backend=backend,
+                         delta_k=delta_k, locality=locality,
+                         metrics_only=False)[0]
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 // Circuit event loop over all cores, compiled for the host.
 //
-// The loop of core/engine.py::_event_loop_plain in one call, with its
-// semantics bit for bit: the same establishment times and the same work
-// counts (events, tested, flows). Plain C++17 with a C entry point, built
-// by kernels/_build.py with -ffp-contract=off and never -ffast-math, so
-// each double operation rounds as numpy's does: a completion time is
-// (t + delta) + srv, with t copied from the event time it was popped as,
-// and every comparison is the exact == or <= of the numpy loop.
+// The loop of the reference's repro/core/engine.py::_event_loop in one
+// call, with its semantics bit for bit: the same establishment times, and
+// the work counts (events, tested, flows) of its numpy twin in
+// tests/test_torch_event_loop_compiled.py. Plain C++17 with a C entry
+// point, built by kernels/_build.py with -ffp-contract=off and never
+// -ffast-math, so each double operation rounds as numpy's does: a
+// completion time is (t + delta) + srv, with t copied from the event time
+// it was popped as, and every comparison is the exact == or <= of the
+// numpy loop.
 //
 // What differs is only how an event finds its work. The numpy loop scans
 // every resource for a free time equal to t. Here each heap entry carries

@@ -1,10 +1,12 @@
 """The circuit event loop compiled for the host (``csrc/event_loop_host.cpp``).
 
-``core.engine._event_loop`` runs :func:`event_loop_compiled`: the loop of
-``core.engine._event_loop_plain`` in one foreign call, with the same
-establishment times and work counts bit for bit. The library is plain C++
-built by the host compiler on first use (``_build.load``, which raises
-where the build fails); ``ctypes`` releases the GIL during the call.
+:func:`event_loop_compiled` runs the loop of the reference's
+``repro.core.engine._event_loop`` in one foreign call, with its
+establishment times bit for bit, and counts the work of a numpy twin of
+that loop; ``tests/test_torch_event_loop_compiled.py`` holds it to the
+twin and to the reference. The library is plain C++ built by the host
+compiler on first use (``_build.load``, which raises where the build
+fails); ``ctypes`` releases the GIL during the call.
 """
 from __future__ import annotations
 
@@ -54,10 +56,10 @@ def _vec(a, n: int, dtype, what: str) -> np.ndarray:
 def event_loop_compiled(rin, rout, srv, core, delta, n_res, n_ports, t0,
                         guard, release, free_in0, free_out0):
     """``(t_est, (events, tested, flows, visited))`` of the compiled loop,
-    with the arguments of ``core.engine._event_loop``. The first three
-    counts are the numpy loop's; ``visited`` is the flow rows the loop
-    read, finished ones included. Ids are read as int64 and times as
-    float64, the dtypes every caller passes.
+    with the arguments of the reference's ``repro.core.engine._event_loop``.
+    The first three counts are the numpy twin's; ``visited`` is the flow
+    rows the loop read, finished ones included. Ids are read as int64 and
+    times as float64, the dtypes every caller passes.
 
     Raises the numpy loop's ``RuntimeError`` on a deadlock, and a
     ``ValueError`` for an id out of range, a NaN or a negative ``t0``.

@@ -1,24 +1,232 @@
-"""The compiled circuit event loop against its numpy twin, bit for bit.
+"""The compiled circuit event loop against its numpy twin and the
+reference, bit for bit.
 
 ``core.engine._event_loop`` runs ``kernels/csrc/event_loop_host.cpp``,
-built by the host compiler on first use (``kernels/_build.py``);
-``_event_loop_plain`` is the numpy reference it is held to. On every
-table here both give the same establishment times, compared as float64
-bits, the same work counts (``events``, ``tested``, ``flows``), or the
-same error. The tables are seeded and random, in every mode the loop has:
-work-conserving and priority-guard, releases, seeded horizons, per-flow
-delays, ``t0``, exact ties and service times below the time's ulp. The
-compiled loop's own count, ``visited`` (the flow rows it read), is at
-least ``tested`` on every table.
+built by the host compiler on first use (``kernels/_build.py``).
+``_event_loop_plain`` below is its numpy twin: the reference's
+``repro.core.engine._event_loop`` with the work counts added. On every
+table here the compiled loop and the twin give the same establishment
+times, compared as float64 bits, the same work counts (``events``,
+``tested``, ``flows``), or the same error; and wherever the twin returns
+establishment times, the reference returns them too, bit for bit. The
+reference is left out only for the other dtypes
+(``test_other_dtypes_are_read_as_the_numpy_loop_reads_them``), for inputs
+outside the domain (``INVALID``) and where the loops deadlock. The tables
+are seeded and random, in every mode the loop has: work-conserving and
+priority-guard, releases, seeded horizons, per-flow delays, ``t0``, exact
+ties and service times below the time's ulp. The compiled loop's own
+count, ``visited`` (the flow rows it read), is at least ``tested`` on
+every table. An integer ``t0`` is a declared difference: the compiled
+loop reads it as a float, where the reference deadlocks.
 """
+import heapq
+
 import numpy as np
 import pytest
 
+import repro.core.engine as ref_engine
 import repro_torch.core as port
 import repro_torch.core.engine as port_engine
 from repro_torch import obs
+from repro_torch.core.engine import _add_counts
 from repro_torch.kernels import _build, event_loop
 
+
+# -- the numpy twin ----------------------------------------------------------
+
+def _first_occurrence(vals: np.ndarray, scratch: np.ndarray) -> np.ndarray:
+    """Boolean mask marking the first occurrence of each value, in order.
+
+    Writing positions in reverse leaves each slot of ``scratch`` holding the
+    *first* position of its value (numpy's fancy assignment keeps the last
+    write), so a flow is first on its resource iff the slot points back at
+    it. ``scratch`` is int64 with at least ``vals.max() + 1`` entries.
+    """
+    n = vals.size
+    scratch[vals[::-1]] = np.arange(n - 1, -1, -1)
+    return scratch[vals] == np.arange(n)
+
+
+def _by_resource(res_ids: np.ndarray, n_res: int) -> list[np.ndarray]:
+    """Flow indices using each resource, in priority (index) order."""
+    order = np.argsort(res_ids, kind="stable")
+    counts = np.bincount(res_ids, minlength=n_res)
+    return np.split(order, np.cumsum(counts)[:-1])
+
+
+def _pop_next_event(events: list[float], t: float) -> float:
+    """Earliest completion strictly after t (``events`` is a heap)."""
+    while events and events[0] <= t:
+        heapq.heappop(events)
+    if not events:
+        raise RuntimeError("scheduler deadlock: pending flows but no events")
+    return heapq.heappop(events)
+
+
+def _event_loop_plain(
+    rin: np.ndarray,    # (F,) int64 ingress resource ids (core*N + i)
+    rout: np.ndarray,   # (F,) int64 egress resource ids (core*N + j)
+    srv: np.ndarray,    # (F,) float64 service times size/rate[core]
+    core: np.ndarray,   # (F,) int64
+    delta: float | np.ndarray,
+    n_res: int,
+    n_ports: int,
+    t0: float = 0.0,
+    guard: bool = False,
+    release: np.ndarray | None = None,
+    free_in0: np.ndarray | None = None,
+    free_out0: np.ndarray | None = None,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Merged event loop over all cores in numpy; flows in priority order.
+    The twin the compiled ``core.engine._event_loop`` is held to.
+
+    Returns t_establish per flow, exactly as the reference's sequential
+    list scan: at each event the started set is {flows whose two resources
+    are free and which are the first pending user of both}, iterated to a
+    fixed point for ``guard=False`` (work-conserving), single-pass for
+    ``guard=True`` (priority-guard: a pending higher-priority flow holds
+    both its resources whether or not it starts).
+
+    Work-conserving: after each event's fixed point every pending flow has
+    a busy resource or an unreached release, so only flows on resources
+    freed exactly at the next event, or released exactly then, can start;
+    candidates come from those resources' flow lists and the release lists.
+    ``release`` (per flow) gates eligibility by the exact comparison
+    ``release <= t``; an unreleased flow never protects its ports under
+    ``guard=True``. Event times are copied verbatim from completion and
+    release times, so the exact float comparisons below are the convention,
+    not a hazard. ``t0`` is the time the resources free (the sunflow
+    barrier). ``delta`` is a scalar or a per-flow array (drifted cores).
+
+    ``free_in0``/``free_out0`` (per resource, both or neither) seed the port
+    horizons from circuits already committed by earlier service ticks
+    (``fabric.FabricState``): every horizon strictly after ``t0`` goes into
+    the event heap, so the loop wakes when a committed circuit tears down;
+    ``+inf`` horizons (a failed core's resources) are never seeded. With
+    ``None`` this is the from-scratch loop.
+
+    ``stats`` (a dict) gets the loop's work added under ``events`` (the
+    times it woke at an event time, the start at ``t0`` included),
+    ``tested`` (the candidate rows that entered the feasibility test: the
+    work-conserving candidates before the free-resource filter, the
+    guarded pending rows after the release filter, once an event) and
+    ``flows`` (the flows started, ``F``). Counting changes no comparison.
+    """
+    F = rin.size
+    t_est = np.full(F, -1.0)
+    if F == 0:
+        _add_counts(stats, 0, 0, 0)
+        return t_est
+    d_vec = None if np.ndim(delta) == 0 else np.asarray(delta, dtype=np.float64)
+    if free_in0 is None:
+        free_in = np.full(n_res, t0)
+        free_out = np.full(n_res, t0)
+    else:
+        free_in = np.asarray(free_in0, dtype=np.float64).copy()
+        free_out = np.asarray(free_out0, dtype=np.float64).copy()
+    done = np.zeros(F, dtype=bool)
+    scratch = np.empty(n_res, dtype=np.int64)
+    events: list[float] = []  # heap of future completion and release times
+    if free_in0 is not None:
+        seed_in = free_in[(free_in > t0) & np.isfinite(free_in)]
+        seed_out = free_out[(free_out > t0) & np.isfinite(free_out)]
+        events = np.unique(np.concatenate([seed_in, seed_out])).tolist()
+    remaining = F
+    t = t0
+    n_events = 1
+    n_tested = 0
+    if release is not None:
+        rel_uniq, rel_inv = np.unique(release, return_inverse=True)
+        events.extend(rel_uniq.tolist())
+        heapq.heapify(events)
+        # flow indices grouped by release value, in priority order
+        rel_lists = np.split(np.argsort(rel_inv, kind="stable"),
+                             np.cumsum(np.bincount(rel_inv))[:-1])
+        rel_map = {float(v): lst for v, lst in zip(rel_uniq, rel_lists)}
+
+    if guard:
+        pending = np.arange(F)
+        first_event = True
+        while remaining:
+            if first_event:
+                pend = pending
+                first_event = False
+            else:
+                # Only cores with a completion (or a release) at t can
+                # start flows now.
+                act = np.zeros(n_res // n_ports, dtype=bool)
+                act[np.nonzero(free_in == t)[0] // n_ports] = True
+                act[np.nonzero(free_out == t)[0] // n_ports] = True
+                if release is not None:
+                    act[core[pending[release[pending] == t]]] = True
+                pend = pending[act[core[pending]]]
+            if release is not None and pend.size:
+                pend = pend[release[pend] <= t]
+            n_tested += pend.size
+            if pend.size:
+                ri, rj = rin[pend], rout[pend]
+                feas = ((free_in[ri] <= t) & (free_out[rj] <= t)
+                        & _first_occurrence(ri, scratch)
+                        & _first_occurrence(rj, scratch))
+                start = pend[feas]
+                if start.size:
+                    tc = (t + (delta if d_vec is None else d_vec[start])) \
+                        + srv[start]
+                    free_in[rin[start]] = tc
+                    free_out[rout[start]] = tc
+                    t_est[start] = t
+                    done[start] = True
+                    remaining -= start.size
+                    for v in tc.tolist():
+                        heapq.heappush(events, v)
+                    pending = pending[~done[pending]]
+                    if not remaining:
+                        break
+            t = _pop_next_event(events, t)
+            n_events += 1
+        _add_counts(stats, n_events, n_tested, F)
+        return t_est
+
+    in_lists = _by_resource(rin, n_res)
+    out_lists = _by_resource(rout, n_res)
+    cand = np.arange(F)  # at t0 every (released) flow is a candidate
+    if release is not None:
+        cand = cand[release[cand] <= t]
+    while remaining:
+        n_tested += cand.size
+        cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
+        while cand.size:
+            safe = _first_occurrence(rin[cand], scratch) \
+                & _first_occurrence(rout[cand], scratch)
+            start = cand[safe]
+            tc = (t + (delta if d_vec is None else d_vec[start])) + srv[start]
+            free_in[rin[start]] = tc
+            free_out[rout[start]] = tc
+            t_est[start] = t
+            done[start] = True
+            remaining -= start.size
+            for v in tc.tolist():
+                heapq.heappush(events, v)
+            cand = cand[~safe]
+            cand = cand[(free_in[rin[cand]] <= t) & (free_out[rout[cand]] <= t)]
+        if not remaining:
+            break
+        t = _pop_next_event(events, t)
+        n_events += 1
+        pool = [in_lists[r] for r in np.nonzero(free_in == t)[0]]
+        pool += [out_lists[r] for r in np.nonzero(free_out == t)[0]]
+        if release is not None:
+            pool.append(rel_map.get(t, np.empty(0, np.int64)))
+        cand = np.unique(np.concatenate(pool)) if pool else np.empty(0, np.int64)
+        cand = cand[~done[cand]]
+        if release is not None:
+            cand = cand[release[cand] <= t]
+    _add_counts(stats, n_events, n_tested, F)
+    return t_est
+
+
+# -- the compiled loop against the twin and the reference --------------------
 
 GUARDS = pytest.mark.parametrize("guard", [False, True],
                                  ids=["work-conserving", "priority-guard"])
@@ -43,10 +251,13 @@ def _visited(outcome):
     return (outcome[0], stats), stats.pop("visited")
 
 
-def _assert_same(rin, rout, srv, core, delta, n_res, n_ports, **kw):
+def _assert_same(rin, rout, srv, core, delta, n_res, n_ports,
+                 reference=True, **kw):
     """The compiled loop gives the plain loop's outcome bit for bit,
     called directly and through ``_event_loop``, and reads at least the
-    rows it tests; returns the plain loop's outcome."""
+    rows it tests; with ``reference``, the reference's loop gives the
+    plain loop's establishment times bit for bit wherever the plain loop
+    returns them. Returns the plain loop's outcome."""
     args = (rin, rout, srv, core, delta, n_res, n_ports)
     kw.setdefault("t0", 0.0)
     kw.setdefault("guard", False)
@@ -55,13 +266,15 @@ def _assert_same(rin, rout, srv, core, delta, n_res, n_ports, **kw):
         out = event_loop.event_loop_compiled(
             *args, kw["t0"], kw["guard"], kw.get("release"),
             kw.get("free_in0"), kw.get("free_out0"))
-        port_engine._add_counts(stats, *out[1])
+        _add_counts(stats, *out[1])
         return out[0]
 
     got, visited = _visited(_outcome(compiled))
-    want = _outcome(lambda st: port_engine._event_loop_plain(
-        *args, stats=st, **kw))
+    want = _outcome(lambda st: _event_loop_plain(*args, stats=st, **kw))
     assert got == want
+    if reference and isinstance(want[1], dict):
+        ref_t = ref_engine._event_loop(*args, **kw)
+        assert ref_t.view(np.int64).tolist() == want[0]
     via_dispatch, via_visited = _visited(_outcome(
         lambda st: port_engine._event_loop(*args, stats=st, **kw)))
     assert via_dispatch == want
@@ -270,6 +483,24 @@ def test_the_offline_k3_cells_shape():
     assert stats["tested"] <= stats["visited"] <= 1.1 * stats["tested"]
 
 
+@GUARDS
+@pytest.mark.parametrize("seed", range(2))
+def test_an_integer_t0_is_read_as_a_float(seed, guard):
+    """A declared difference: the compiled loop reads ``t0=3`` as ``3.0``
+    and gives its establishment times bit for bit, where the reference
+    (and the twin with it) keeps int64 free times from an integer ``t0``
+    and deadlocks. No caller passes an int: sunflow's barrier is a
+    float."""
+    rin, rout, srv, core = _table(seed + 110)
+    args = (rin, rout, srv, core, 8.0, 15, 5)
+    want = _assert_same(*args, t0=3.0, guard=guard)
+    got = port_engine._event_loop(*args, t0=3, guard=guard)
+    assert got.view(np.int64).tolist() == want[0]
+    for loop in (ref_engine._event_loop, _event_loop_plain):
+        with pytest.raises(RuntimeError, match="scheduler deadlock"):
+            loop(*args, t0=3, guard=guard)
+
+
 # -- inputs outside the loop's domain, and other dtypes ----------------------
 
 def _small():
@@ -332,7 +563,7 @@ def test_other_dtypes_are_read_as_the_numpy_loop_reads_them(case, guard):
     """Integer ids of another width and an integer delay give the numpy
     loop's outcome bit for bit: both compute in int64 and float64."""
     args, kw = OTHER_DTYPES[case](*_small())
-    _assert_same(*args, guard=guard, **kw)
+    _assert_same(*args, reference=False, guard=guard, **kw)
 
 
 # -- the build and the dispatch ------------------------------------------------

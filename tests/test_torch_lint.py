@@ -469,7 +469,7 @@ def test_port_tree_lints_clean():
     assert report.protocol["declared"] == 15
     assert report.cuda_files == CUDA_FILES
     assert {f.rule for f in report.suppressed} == {"float-eq"}
-    assert len(report.suppressed) == 8
+    assert len(report.suppressed) == 3
 
 
 # -------------------------------------------------------------- CLI contract

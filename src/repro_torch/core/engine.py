@@ -22,9 +22,10 @@ with one child span a stage: ``fast/order``, ``fast/extract``,
 ``fast/assign``, ``fast/to_host`` (the service times and resource ids on
 the device and their copies to the host), ``fast/event_loop`` (the host
 loop, with its work counts ``events``, ``tested`` and ``flows``, the
-compiled loop's ``visited``, and its ``impl``), ``fast/to_device`` and
-``fast/schedule``. With the default ``NULL_TRACER`` a stage costs one
-shared no-op span, and attributes are computed only behind ``span.live``.
+compiled loop's ``visited`` and ``unread``, and its ``impl``),
+``fast/to_device`` and ``fast/schedule``. With the default
+``NULL_TRACER`` a stage costs one shared no-op span, and attributes are
+computed only behind ``span.live``.
 
 The event loops stay host code: sequential logic with no kernel in the
 reference, where each event depends on the free times the last one wrote
@@ -217,12 +218,15 @@ def _drifted_delta_k(inst: Instance,
 
 
 def _add_counts(stats: dict | None, events: int, tested: int,
-                flows: int, visited: int | None = None) -> None:
+                flows: int, visited: int | None = None,
+                unread: int | None = None) -> None:
     """Add an event loop's work counts to ``stats`` (when given);
-    ``visited`` only where the loop counts it (the compiled one)."""
+    ``visited`` and ``unread`` only where the loop counts them (the
+    compiled one)."""
     if stats is not None:
         for key, n in (("events", events), ("tested", tested),
-                       ("flows", flows), ("visited", visited)):
+                       ("flows", flows), ("visited", visited),
+                       ("unread", unread)):
             if n is not None:
                 stats[key] = stats.get(key, 0) + n
 
@@ -248,10 +252,12 @@ def _event_loop(
     library (``kernels/event_loop.py``), built on first use; ``t0`` is read
     as a float64. ``stats`` gets the loop's work added under ``events``
     (the times it woke at an event time, the start at ``t0`` included),
-    ``tested`` (the candidate rows that entered the feasibility test),
-    ``flows`` (the flows started) and ``visited`` (the flow rows it read,
-    finished ones included). Raises a ``ValueError`` for an id out of
-    range, a NaN or a negative ``t0``."""
+    ``tested`` (the rows whose two resources it checked, once an event
+    each; under the guard, every released pending row of an active core),
+    ``flows`` (the flows started), ``visited`` (the flow rows it read,
+    finished ones included) and ``unread`` (the rows an event left behind
+    the point where it stopped reading a list). Raises a ``ValueError``
+    for an id out of range, a NaN or a negative ``t0``."""
     t_est, counts = compiled_loop.event_loop_compiled(
         rin, rout, srv, core, delta, n_res, n_ports, t0, guard, release,
         free_in0, free_out0)

@@ -2,8 +2,8 @@
 //
 // The loop of the reference's repro/core/engine.py::_event_loop in one
 // call, with its semantics bit for bit: the same establishment times, and
-// the work counts (events, tested, flows) of its numpy twin in
-// tests/test_torch_event_loop_compiled.py. Plain C++17 with a C entry
+// the events and flows its numpy twin in
+// tests/test_torch_event_loop_compiled.py counts. Plain C++17 with a C entry
 // point, built by kernels/_build.py with -ffp-contract=off and never
 // -ffast-math, so each double operation rounds as numpy's does: a
 // completion time is (t + delta) + srv, with t copied from the event time
@@ -18,9 +18,9 @@
 // its last write, and every write above t0 pushes an entry. The one value
 // no entry can name is +inf (a failed core's horizon is never seeded), so
 // an event at t = +inf scans as the numpy loop does. A work-conserving
-// event reads the flow lists of the resources it freed, drops each list's
-// finished flows as it reads it (so a flow is read at most once after it
-// starts), and sorts only the gathered flows whose resources are both free.
+// event merges the flow lists of the resources it freed by index and stops
+// reading each list at the row that takes its resource
+// (Loop::work_conserving).
 //
 // Inputs outside the loop's domain (an id out of range, a NaN, t0 < 0,
 // where +0 and -0 may tie in the heap) return kInvalid, which the caller
@@ -59,6 +59,7 @@ struct Marks {
     at[i] = epoch;
     return true;
   }
+  bool marked(int64_t i) const { return at[i] == epoch; }
 };
 
 struct Loop {
@@ -82,6 +83,7 @@ struct Loop {
   double t;
   int64_t remaining, n_events = 1, n_tested = 0;
   int64_t n_visited = 0;  // flow rows read, finished ones included
+  int64_t n_unread = 0;   // rows an event left unread behind its cursors
 
   Loop(int64_t F_, int64_t n_res_)
       : F(F_), n_res(n_res_), free_in(n_res_), free_out(n_res_),
@@ -158,94 +160,135 @@ struct Loop {
 };
 
 // Every pending flow has a busy resource or an unreached release after an
-// event's fixed point, so the candidates of the next event are the flows on
-// the resources it frees and the flows it releases. Each is counted as
-// tested, as the numpy loop counts it; only those free at t enter the sort.
+// event's fixed point, so the flows that can start at the next event are on
+// the lists of the resources it frees or in the groups it releases. The
+// numpy loop's fixed point (start each free candidate that is first on both
+// its resources, and repeat) starts what a pass in priority order starts: a
+// flow starts if both its resources are still free once every earlier
+// candidate on them has started or been dropped. So an event merges its
+// lists by index. A cursor a list stops at the list's first row that can
+// start (its head), the smallest head starts, and its cursor reads on. A
+// row a cursor passes stays blocked for the rest of the event, as resources
+// only get busier within it, and a resource's cursor closes once the
+// resource is busy, leaving the rest of its list unread. A head is checked
+// again when it is the smallest, as another start may have taken its
+// resource since it was read.
+//
+// A row on two of an event's lists is tested on one: its ingress list if
+// that resource was freed, else its egress list, else its release group.
+// The other list's cursor passes it untested, as the row can start only
+// through the list that tests it, which reads on to it unless its resource
+// is taken first. So tested counts each row an event checks once, and a
+// resource's cursor compares one free time a row.
 int Loop::work_conserving() {
   // flows by resource, in priority (index) order; the pending flows of
-  // resource r are flows[off[r] .. end[r])
-  std::vector<int64_t> in_off(n_res + 1, 0), out_off(n_res + 1, 0);
+  // resource r are flows[beg[r] .. end[r]), among finished ones that no
+  // cursor has read past since they started
+  std::vector<int64_t> in_beg(n_res + 1, 0), out_beg(n_res + 1, 0);
   for (int64_t f = 0; f < F; ++f) {
-    ++in_off[rin[f] + 1];
-    ++out_off[rout[f] + 1];
+    ++in_beg[rin[f] + 1];
+    ++out_beg[rout[f] + 1];
   }
   for (int64_t r = 0; r < n_res; ++r) {
-    in_off[r + 1] += in_off[r];
-    out_off[r + 1] += out_off[r];
+    in_beg[r + 1] += in_beg[r];
+    out_beg[r + 1] += out_beg[r];
   }
   std::vector<int64_t> in_flows(F), out_flows(F);
-  std::vector<int64_t> in_end(in_off.begin(), in_off.end() - 1);
-  std::vector<int64_t> out_end(out_off.begin(), out_off.end() - 1);
+  std::vector<int64_t> in_end(in_beg.begin(), in_beg.end() - 1);
+  std::vector<int64_t> out_end(out_beg.begin(), out_beg.end() - 1);
   for (int64_t f = 0; f < F; ++f) {
     in_flows[in_end[rin[f]]++] = f;
     out_flows[out_end[rout[f]]++] = f;
   }
 
-  Marks taken(F);
-  std::vector<int64_t> cand, next;
-  cand.reserve(F);
-  next.reserve(F);
-  // a released flow, the first time this event reads it: tested, and a
-  // candidate when both its resources are free
-  auto take = [&](int64_t f) {
-    if ((!release || release[f] <= t) && taken.mark(f)) {
-      ++n_tested;
-      if (free_at_t(f)) cand.push_back(f);
-    }
-  };
   // at t0 every flow is read, in priority order
-  taken.next();
   n_visited += F;
-  for (int64_t f = 0; f < F; ++f) take(f);
+  for (int64_t f = 0; f < F; ++f) {
+    if (release && release[f] > t) continue;
+    ++n_tested;
+    if (free_at_t(f)) start(f);
+  }
 
-  // takes the pending flows of the freed resources, dropping finished ones
-  // from each list in place
-  auto gather = [&](const std::vector<int64_t>& freed_r,
-                    const std::vector<int64_t>& off,
-                    std::vector<int64_t>& flows,
-                    std::vector<int64_t>& end) {
-    for (int64_t r : freed_r) {
-      int64_t w = off[r];
-      for (int64_t k = off[r]; k < end[r]; ++k) {
-        const int64_t f = flows[k];
-        if (done[f]) continue;
-        flows[w++] = f;
-        take(f);
+  enum Side : int { kIn, kOut, kGroup };
+  struct Cursor {
+    Side side;
+    int64_t* flows;        // the list's rows
+    int64_t* beg;          // its first pending row (null: a release group)
+    const double* free;    // its resource's free time (null: a group)
+    int64_t from, p, end;  // read [from, p) in this event, [p, end) unread
+    int64_t head;          // the last row read, if it could start; else -1
+  };
+  std::vector<Cursor> cursors;
+  // reads on to the cursor's next row that can start at t
+  auto advance = [&](Cursor& c) {
+    c.head = -1;
+    if (c.free && *c.free > t) return;  // every later row is blocked
+    const int64_t* flows = c.flows;
+    int64_t p = c.p, n = 0, head = -1;
+    while (p < c.end) {
+      const int64_t f = flows[p++];
+      if (done[f] || (release && release[f] > t)) continue;
+      bool free;
+      if (c.side == kIn) {
+        free = free_out[rout[f]] <= t;
+      } else if (c.side == kOut) {
+        if (freed_mark_in.marked(rin[f])) continue;
+        free = free_in[rin[f]] <= t;
+      } else {
+        if (freed_mark_in.marked(rin[f]) || freed_mark_out.marked(rout[f]))
+          continue;
+        free = free_at_t(f);
       }
-      n_visited += end[r] - off[r];
-      end[r] = w;
+      ++n;
+      if (free) {
+        head = f;
+        break;
+      }
     }
+    c.p = p;
+    c.head = head;
+    n_tested += n;
+  };
+  auto open = [&](Side side, const std::vector<int64_t>& freed_r,
+                  std::vector<int64_t>& flows, std::vector<int64_t>& beg,
+                  const std::vector<int64_t>& end,
+                  const std::vector<double>& free) {
+    for (int64_t r : freed_r)
+      if (beg[r] < end[r])
+        cursors.push_back({side, flows.data(), &beg[r], &free[r], beg[r],
+                           beg[r], end[r], -1});
   };
 
   for (;;) {
-    // the fixed point: start every candidate first on both its resources
-    // among the free candidates, until none is left
-    while (!cand.empty()) {
-      first_in.next();
-      first_out.next();
-      next.clear();
-      for (int64_t f : cand) {
-        const bool a = first_in.mark(rin[f]);
-        const bool b = first_out.mark(rout[f]);
-        if (a && b) {
-          start(f);
-        } else if (free_at_t(f)) {
-          next.push_back(f);
-        }
-      }
-      cand.swap(next);
-    }
     if (remaining == 0) break;
     if (!next_event()) return kDeadlock;
-    cand.clear();
-    taken.next();
-    gather(freed_in, in_off, in_flows, in_end);
-    gather(freed_out, out_off, out_flows, out_end);
-    for_released_at_t([&](int64_t f) {
-      ++n_visited;
-      if (!done[f]) take(f);
-    });
-    std::sort(cand.begin(), cand.end());
+    cursors.clear();
+    open(kIn, freed_in, in_flows, in_beg, in_end, free_in);
+    open(kOut, freed_out, out_flows, out_beg, out_end, free_out);
+    for (int64_t g : groups)
+      cursors.push_back({kGroup, rel_flows.data(), nullptr, nullptr,
+                         rel_start[g], rel_start[g], rel_start[g + 1], -1});
+    for (Cursor& c : cursors) advance(c);
+    for (;;) {
+      Cursor* low = nullptr;
+      for (Cursor& c : cursors)
+        if (c.head >= 0 && (!low || c.head < low->head)) low = &c;
+      if (!low) break;
+      const int64_t f = low->head;
+      if (!done[f] && free_at_t(f)) start(f);
+      advance(*low);
+    }
+    // each list keeps the pending rows of the part read, moved up against
+    // its unread rest
+    for (Cursor& c : cursors) {
+      n_visited += c.p - c.from;
+      n_unread += c.end - c.p;
+      if (!c.beg) continue;
+      int64_t w = c.p;
+      for (int64_t k = c.p; k-- > c.from;)
+        if (!done[c.flows[k]]) c.flows[--w] = c.flows[k];
+      *c.beg = w;
+    }
   }
   return kOk;
 }
@@ -332,10 +375,12 @@ bool any_nan(const double* v, int64_t n) {
 }  // namespace
 
 // Establishment times t_est (F,) and counts {events, tested, flows,
-// visited} of the merged event loop over flows in priority order; visited
-// is the flow rows the loop read, finished ones included (the numpy loop
-// has no such count). rin/rout are resource ids (core * n_ports + port);
-// core is read only when guard is set.
+// visited, unread} of the merged event loop over flows in priority order;
+// tested is the rows whose two resources an event checked, visited the
+// flow rows the loop read, finished ones included, and unread the rows an
+// event left unread behind its cursors (the numpy loop has no such
+// counts; 0 under the guard). rin/rout are resource ids
+// (core * n_ports + port); core is read only when guard is set.
 // delta_f (per flow) replaces delta when not null; release (per flow) and
 // the seeded horizons free_in0/free_out0 (per resource, both or neither)
 // may be null. Returns kOk, kDeadlock (pending flows but no event left),
@@ -346,7 +391,7 @@ extern "C" int event_loop_host(
     const double* delta_f, int64_t n_res, int64_t n_ports, double t0,
     int guard, const double* release, const double* free_in0,
     const double* free_out0, double* t_est, int64_t* counts) {
-  counts[0] = counts[1] = counts[2] = counts[3] = 0;
+  std::fill(counts, counts + 5, 0);
   if (n_flows == 0) return kOk;
   if (n_flows < 0 || n_res <= 0 || std::isnan(t0) || t0 < 0.0 ||
       (free_in0 == nullptr) != (free_out0 == nullptr))
@@ -409,6 +454,7 @@ extern "C" int event_loop_host(
     counts[1] = L.n_tested;
     counts[2] = n_flows;
     counts[3] = L.n_visited;
+    counts[4] = L.n_unread;
     return kOk;
   } catch (...) {
     return kFailed;

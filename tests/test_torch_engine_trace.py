@@ -3,10 +3,11 @@
 ``run_fast``, ``run_fast_online`` and ``run_fast_metrics`` open one
 ``fast/run`` span a call on the process-wide tracer, with a child span a
 stage; ``fast/event_loop`` carries the loop's ``events``, ``tested`` and
-``flows``, the compiled loop's ``visited``, and which loop ran (``impl``). Tracing observes only: every schedule is bit for bit the one
-the tracer-off run gives. While ``torch``'s profiler records, each span is
-also a profiler range of its name, so the spans sit on the profiler's
-clock.
+``flows``, the compiled loop's ``visited`` and ``unread``, and which loop
+ran (``impl``). Tracing observes only: every schedule is bit for bit the
+one the tracer-off run gives. While ``torch``'s profiler records, each
+span is also a profiler range of its name, so the spans sit on the
+profiler's clock.
 """
 import numpy as np
 import pytest
@@ -105,12 +106,13 @@ def test_spans_nest_under_one_run_and_schedules_stay_bitwise(entry,
         "path": "kernel" if backend == "kernel" else "host", "flows": n_flows}
     loop = by["fast/event_loop"]["attrs"]
     assert set(loop) == {"events", "tested", "flows", "impl"} | (
-        {"visited"} if loop["impl"] == "compiled" else set())
+        {"visited", "unread"} if loop["impl"] == "compiled" else set())
     assert loop["impl"] == ("numpy" if scheduling == "reserving"
                             else _compiled_impl())
     assert loop["flows"] == n_flows
     assert loop["tested"] >= loop["flows"] and loop["events"] >= 1
     assert loop.get("visited", loop["tested"]) >= loop["tested"]
+    assert loop.get("unread", 0) >= 0
     order = [r["name"] for r in sorted(spans, key=lambda r: r["ts"])]
     assert order == ["fast/run", "fast/order", "fast/extract", "fast/assign",
                      "fast/to_host", "fast/event_loop", "fast/to_device",
@@ -163,31 +165,36 @@ def _loop_case(flows, srv, n_ports, K, guard):
 def test_counts_of_three_flows_on_one_ingress_port(guard):
     """Core 0 has three flows on ingress port 0 (egress 0, 1, 2), core 1
     one. At 0 the first of core 0 and core 1's flow start (4 tested); core
-    0's port frees at 2 (its 2 pending flows tested, one starts), core 1's
-    at 3 (none tested: no pending flow uses it), core 0's again at 5 (the
-    last). Both policies test the same here: all of core 0's flows share
-    the port. Work-conserving reads the freed resources' lists: 4 rows at
-    0, then 3 + 1 at 2, 1 + 1 at 3, 2 + 1 at 5; the guard reads its
-    pending rows, 4 + 2 + 0 + 1."""
+    0's port frees at 2 (one flow starts), core 1's at 3 (no pending flow
+    uses it), core 0's again at 5 (the last). The guard tests and reads
+    its pending rows, 4 + 2 + 0 + 1. Work-conserving stops reading a list
+    at the row that takes its port: at 2 ingress 0's list is read up to
+    0->1 (2 rows, 1 tested), leaving 0->2 unread, and egress 0's 1 row;
+    then 1 + 1 rows at 3 and 1 + 1 at 5 (1 tested), so 4 + 1 + 0 + 1
+    tested and 4 + 3 + 2 + 2 read."""
     t_est, stats = _loop_case([(0, 0, 0), (0, 0, 1), (0, 0, 2), (1, 0, 0)],
                               [1.0, 2.0, 3.0, 2.0], n_ports=3, K=2,
                               guard=guard)
     np.testing.assert_array_equal(t_est, [0.0, 2.0, 5.0, 0.0])
-    assert stats == {"events": 4, "tested": 7, "flows": 4,
-                     "visited": 7 if guard else 13}
+    assert stats == ({"events": 4, "tested": 7, "flows": 4, "visited": 7,
+                      "unread": 0} if guard else
+                     {"events": 4, "tested": 6, "flows": 4, "visited": 11,
+                      "unread": 1})
 
 
 @pytest.mark.parametrize("guard,t_want,counts", [
     (False, [0.0, 2.0, 0.0],
-     {"events": 2, "tested": 4, "flows": 3, "visited": 9}),
+     {"events": 2, "tested": 4, "flows": 3, "visited": 9, "unread": 0}),
     (True, [0.0, 2.0, 4.0],
-     {"events": 3, "tested": 6, "flows": 3, "visited": 6})])
+     {"events": 3, "tested": 6, "flows": 3, "visited": 6, "unread": 0})])
 def test_counts_where_the_guard_holds_a_port(guard, t_want, counts):
     """Flows 0->0, 0->1, 1->1 on one core, each 1 long. Work-conserving
-    backfills 1->1 at 0 (3 tested), then at 2 tests the one left, reading
-    all four lists the two completions free (2 + 1 + 1 + 2 rows); the
-    guard keeps 1->1 off egress 1, which 0->1 holds, so it tests both at 2
-    and the last again at 4, reading only its pending rows."""
+    backfills 1->1 at 0 (3 tested), then at 2 tests the one left on
+    ingress 0's list, reading all four lists the two completions free
+    (2 + 1 + 1 + 2 rows: egress 1's passes 0->1 untested, as ingress 0's
+    tests it); the guard keeps 1->1 off egress 1, which 0->1 holds, so it
+    tests both at 2 and the last again at 4, reading only its pending
+    rows."""
     t_est, stats = _loop_case([(0, 0, 0), (0, 0, 1), (0, 1, 1)],
                               [1.0, 1.0, 1.0], n_ports=2, K=1, guard=guard)
     np.testing.assert_array_equal(t_est, t_want)
@@ -215,14 +222,16 @@ def test_a_started_row_is_read_once_more_on_its_list():
     """One core of 3 ports, work-conserving. 1->1 starts at 0 (until 11)
     and holds egress 1, so 0->1 waits and 0->0, behind it on ingress 0,
     starts at 0 (until 2). At 2 ingress 0's list [0->1, 0->0, 0->2] is
-    read whole, 0->0 is dropped from it and 0->2 starts (until 4); at 4
-    the list is [0->1, 0->2], and 0->0 is not read again. Rows read: 4 at
-    0; 3 + 1 at 2; 2 + 1 at 4; 1 + 2 at 11, where 0->1 starts."""
+    read whole and 0->2 starts (until 4); the event drops 0->0 and 0->2
+    from the part it read, so at 4 the list is [0->1], and neither is read
+    on it again (0->2 is read once more, on egress 2's list). Rows read: 4
+    at 0; 3 + 1 at 2; 1 + 1 at 4; 1 + 2 at 11, where 0->1 starts."""
     t_est, stats = _loop_case([(0, 1, 1), (0, 0, 1), (0, 0, 0), (0, 0, 2)],
                               [10.0, 1.0, 1.0, 1.0], n_ports=3, K=1,
                               guard=False)
     np.testing.assert_array_equal(t_est, [0.0, 11.0, 0.0, 2.0])
-    assert stats == {"events": 4, "tested": 8, "flows": 4, "visited": 14}
+    assert stats == {"events": 4, "tested": 8, "flows": 4, "visited": 13,
+                     "unread": 0}
 
 
 def test_sunflow_adds_its_groups_counts(monkeypatch):
@@ -236,7 +245,8 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
         out = loop(*a, stats=mine, **k)
         own.append(mine)
         port_engine._add_counts(stats, mine["events"], mine["tested"],
-                                mine["flows"], mine["visited"])
+                                mine["flows"], mine["visited"],
+                                mine["unread"])
         return out
 
     monkeypatch.setattr(port_engine, "_event_loop", counted)
@@ -246,7 +256,7 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
     assert len(own) > 1
     assert loop_attrs == {**{k: sum(c[k] for c in own)
                              for k in ("events", "tested", "flows",
-                                       "visited")},
+                                       "visited", "unread")},
                           "impl": _compiled_impl()}
     assert loop_attrs["flows"] == s.n_flows
 

@@ -22,7 +22,8 @@ with one child span a stage: ``fast/order``, ``fast/extract``,
 ``fast/assign``, ``fast/to_host`` (the service times and resource ids on
 the device and their copies to the host), ``fast/event_loop`` (the host
 loop, with its work counts ``events``, ``tested`` and ``flows``, the
-compiled loop's ``visited`` and ``unread``, and its ``impl``),
+compiled loop's ``visited``, ``unread`` and ``unreleased``, and its
+``impl``),
 ``fast/to_device`` and ``fast/schedule``. With the default
 ``NULL_TRACER`` a stage costs one shared no-op span, and attributes are
 computed only behind ``span.live``.
@@ -219,14 +220,15 @@ def _drifted_delta_k(inst: Instance,
 
 def _add_counts(stats: dict | None, events: int, tested: int,
                 flows: int, visited: int | None = None,
-                unread: int | None = None) -> None:
+                unread: int | None = None,
+                unreleased: int | None = None) -> None:
     """Add an event loop's work counts to ``stats`` (when given);
-    ``visited`` and ``unread`` only where the loop counts them (the
-    compiled one)."""
+    ``visited``, ``unread`` and ``unreleased`` only where the loop counts
+    them (the compiled one)."""
     if stats is not None:
         for key, n in (("events", events), ("tested", tested),
                        ("flows", flows), ("visited", visited),
-                       ("unread", unread)):
+                       ("unread", unread), ("unreleased", unreleased)):
             if n is not None:
                 stats[key] = stats.get(key, 0) + n
 
@@ -255,8 +257,10 @@ def _event_loop(
     ``tested`` (the rows whose two resources it checked, once an event
     each; under the guard, every released pending row of an active core),
     ``flows`` (the flows started), ``visited`` (the flow rows it read,
-    finished ones included) and ``unread`` (the rows an event left behind
-    the point where it stopped reading a list). Raises a ``ValueError``
+    finished ones included), ``unread`` (the rows an event left behind
+    the point where it stopped reading a list) and ``unreleased`` (the
+    pending rows it read and passed because their release was still
+    ahead; 0 without ``release``). Raises a ``ValueError``
     for an id out of range, a NaN or a negative ``t0``."""
     t_est, counts = compiled_loop.event_loop_compiled(
         rin, rout, srv, core, delta, n_res, n_ports, t0, guard, release,

@@ -84,6 +84,7 @@ struct Loop {
   int64_t remaining, n_events = 1, n_tested = 0;
   int64_t n_visited = 0;  // flow rows read, finished ones included
   int64_t n_unread = 0;   // rows an event left unread behind its cursors
+  int64_t n_unreleased = 0;  // pending rows read and passed as not released
 
   Loop(int64_t F_, int64_t n_res_)
       : F(F_), n_res(n_res_), free_in(n_res_), free_out(n_res_),
@@ -204,7 +205,10 @@ int Loop::work_conserving() {
   // at t0 every flow is read, in priority order
   n_visited += F;
   for (int64_t f = 0; f < F; ++f) {
-    if (release && release[f] > t) continue;
+    if (release && release[f] > t) {
+      ++n_unreleased;
+      continue;
+    }
     ++n_tested;
     if (free_at_t(f)) start(f);
   }
@@ -227,7 +231,11 @@ int Loop::work_conserving() {
     int64_t p = c.p, n = 0, head = -1;
     while (p < c.end) {
       const int64_t f = flows[p++];
-      if (done[f] || (release && release[f] > t)) continue;
+      if (done[f]) continue;
+      if (release && release[f] > t) {
+        ++n_unreleased;
+        continue;
+      }
       bool free;
       if (c.side == kIn) {
         free = free_out[rout[f]] <= t;
@@ -330,6 +338,7 @@ int Loop::priority_guard() {
       size_t n = 0;
       for (int64_t f : pend)
         if (release[f] <= t) pend[n++] = f;
+      n_unreleased += static_cast<int64_t>(pend.size() - n);
       pend.resize(n);
     }
     n_tested += static_cast<int64_t>(pend.size());
@@ -375,11 +384,13 @@ bool any_nan(const double* v, int64_t n) {
 }  // namespace
 
 // Establishment times t_est (F,) and counts {events, tested, flows,
-// visited, unread} of the merged event loop over flows in priority order;
-// tested is the rows whose two resources an event checked, visited the
-// flow rows the loop read, finished ones included, and unread the rows an
-// event left unread behind its cursors (the numpy loop has no such
-// counts; 0 under the guard). rin/rout are resource ids
+// visited, unread, unreleased} of the merged event loop over flows in
+// priority order; tested is the rows whose two resources an event checked,
+// visited the flow rows the loop read, finished ones included, unread the
+// rows an event left unread behind its cursors (0 under the guard), and
+// unreleased the pending rows it read and passed because their release
+// was still ahead (0 without release; of the last three, the numpy twin
+// counts only this one, under the guard). rin/rout are resource ids
 // (core * n_ports + port); core is read only when guard is set.
 // delta_f (per flow) replaces delta when not null; release (per flow) and
 // the seeded horizons free_in0/free_out0 (per resource, both or neither)
@@ -391,7 +402,7 @@ extern "C" int event_loop_host(
     const double* delta_f, int64_t n_res, int64_t n_ports, double t0,
     int guard, const double* release, const double* free_in0,
     const double* free_out0, double* t_est, int64_t* counts) {
-  std::fill(counts, counts + 5, 0);
+  std::fill(counts, counts + 6, 0);
   if (n_flows == 0) return kOk;
   if (n_flows < 0 || n_res <= 0 || std::isnan(t0) || t0 < 0.0 ||
       (free_in0 == nullptr) != (free_out0 == nullptr))
@@ -455,6 +466,7 @@ extern "C" int event_loop_host(
     counts[2] = n_flows;
     counts[3] = L.n_visited;
     counts[4] = L.n_unread;
+    counts[5] = L.n_unreleased;
     return kOk;
   } catch (...) {
     return kFailed;

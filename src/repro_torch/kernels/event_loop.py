@@ -55,15 +55,17 @@ def _vec(a, n: int, dtype, what: str) -> np.ndarray:
 
 def event_loop_compiled(rin, rout, srv, core, delta, n_res, n_ports, t0,
                         guard, release, free_in0, free_out0):
-    """``(t_est, (events, tested, flows, visited, unread))`` of the
-    compiled loop, with the arguments of the reference's
+    """``(t_est, (events, tested, flows, visited, unread, unreleased))``
+    of the compiled loop, with the arguments of the reference's
     ``repro.core.engine._event_loop``. ``events`` and ``flows`` are the
     numpy twin's, and so is ``tested`` under the guard; work-conserving,
     ``tested`` is the rows whose two resources the loop checked, once an
     event each, at most the twin's count. ``visited`` is the flow rows
-    the loop read, finished ones included, and ``unread`` the rows an
-    event left behind its cursors on the lists it opened. Ids are read as
-    int64 and times as float64, the dtypes every caller passes.
+    the loop read, finished ones included, ``unread`` the rows an event
+    left behind its cursors on the lists it opened, and ``unreleased``
+    the pending rows it read and passed because their release was still
+    ahead (0 without ``release``). Ids are read as int64 and times as
+    float64, the dtypes every caller passes.
 
     Raises the numpy loop's ``RuntimeError`` on a deadlock, and a
     ``ValueError`` for an id out of range, a NaN or a negative ``t0``.
@@ -88,7 +90,7 @@ def event_loop_compiled(rin, rout, srv, core, delta, n_res, n_ports, t0,
         free_in0 = _vec(free_in0, n_res, np.float64, "free_in0")
         free_out0 = _vec(free_out0, n_res, np.float64, "free_out0")
     t_est = np.empty(F)
-    counts = np.zeros(5, dtype=np.int64)
+    counts = np.zeros(6, dtype=np.int64)
     rc = fn(F, _ptr(rin), _ptr(rout), _ptr(srv), _ptr(core), d,
             _ptr(d_vec), n_res, n_ports, float(t0), int(bool(guard)),
             _ptr(release), _ptr(free_in0), _ptr(free_out0), _ptr(t_est),

@@ -3,8 +3,8 @@
 ``run_fast``, ``run_fast_online`` and ``run_fast_metrics`` open one
 ``fast/run`` span a call on the process-wide tracer, with a child span a
 stage; ``fast/event_loop`` carries the loop's ``events``, ``tested`` and
-``flows``, the compiled loop's ``visited`` and ``unread``, and which loop
-ran (``impl``). Tracing observes only: every schedule is bit for bit the
+``flows``, the compiled loop's ``visited``, ``unread`` and
+``unreleased``, and which loop ran (``impl``). Tracing observes only: every schedule is bit for bit the
 one the tracer-off run gives. While ``torch``'s profiler records, each
 span is also a profiler range of its name, so the spans sit on the
 profiler's clock.
@@ -106,13 +106,20 @@ def test_spans_nest_under_one_run_and_schedules_stay_bitwise(entry,
         "path": "kernel" if backend == "kernel" else "host", "flows": n_flows}
     loop = by["fast/event_loop"]["attrs"]
     assert set(loop) == {"events", "tested", "flows", "impl"} | (
-        {"visited", "unread"} if loop["impl"] == "compiled" else set())
+        {"visited", "unread", "unreleased"} if loop["impl"] == "compiled"
+        else set())
     assert loop["impl"] == ("numpy" if scheduling == "reserving"
                             else _compiled_impl())
     assert loop["flows"] == n_flows
     assert loop["tested"] >= loop["flows"] and loop["events"] >= 1
     assert loop.get("visited", loop["tested"]) >= loop["tested"]
     assert loop.get("unread", 0) >= 0
+    if entry == "run_fast" or scheduling == "sunflow":
+        assert loop.get("unreleased", 0) == 0  # no row gated by a release
+    elif scheduling != "reserving":  # at 0 only the first coflow is out
+        assert loop["unreleased"] > 0
+    assert (loop.get("visited", loop["tested"])
+            >= loop["tested"] + loop.get("unreleased", 0))
     order = [r["name"] for r in sorted(spans, key=lambda r: r["ts"])]
     assert order == ["fast/run", "fast/order", "fast/extract", "fast/assign",
                      "fast/to_host", "fast/event_loop", "fast/to_device",
@@ -177,16 +184,18 @@ def test_counts_of_three_flows_on_one_ingress_port(guard):
                               guard=guard)
     np.testing.assert_array_equal(t_est, [0.0, 2.0, 5.0, 0.0])
     assert stats == ({"events": 4, "tested": 7, "flows": 4, "visited": 7,
-                      "unread": 0} if guard else
+                      "unread": 0, "unreleased": 0} if guard else
                      {"events": 4, "tested": 6, "flows": 4, "visited": 11,
-                      "unread": 1})
+                      "unread": 1, "unreleased": 0})
 
 
 @pytest.mark.parametrize("guard,t_want,counts", [
     (False, [0.0, 2.0, 0.0],
-     {"events": 2, "tested": 4, "flows": 3, "visited": 9, "unread": 0}),
+     {"events": 2, "tested": 4, "flows": 3, "visited": 9, "unread": 0,
+      "unreleased": 0}),
     (True, [0.0, 2.0, 4.0],
-     {"events": 3, "tested": 6, "flows": 3, "visited": 6, "unread": 0})])
+     {"events": 3, "tested": 6, "flows": 3, "visited": 6, "unread": 0,
+      "unreleased": 0})])
 def test_counts_where_the_guard_holds_a_port(guard, t_want, counts):
     """Flows 0->0, 0->1, 1->1 on one core, each 1 long. Work-conserving
     backfills 1->1 at 0 (3 tested), then at 2 tests the one left on
@@ -216,6 +225,7 @@ def test_counts_bound_the_work_of_a_plan_m48_shaped_instance(scheduling):
     assert n["events"] >= np.unique(s.t_establish.numpy()).size
     assert n["tested"] >= n["flows"]
     assert n["visited"] >= n["tested"]
+    assert n["unreleased"] == 0
 
 
 def test_a_started_row_is_read_once_more_on_its_list():
@@ -231,7 +241,7 @@ def test_a_started_row_is_read_once_more_on_its_list():
                               guard=False)
     np.testing.assert_array_equal(t_est, [0.0, 11.0, 0.0, 2.0])
     assert stats == {"events": 4, "tested": 8, "flows": 4, "visited": 13,
-                     "unread": 0}
+                     "unread": 0, "unreleased": 0}
 
 
 def test_sunflow_adds_its_groups_counts(monkeypatch):
@@ -246,7 +256,7 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
         own.append(mine)
         port_engine._add_counts(stats, mine["events"], mine["tested"],
                                 mine["flows"], mine["visited"],
-                                mine["unread"])
+                                mine["unread"], mine["unreleased"])
         return out
 
     monkeypatch.setattr(port_engine, "_event_loop", counted)
@@ -256,7 +266,7 @@ def test_sunflow_adds_its_groups_counts(monkeypatch):
     assert len(own) > 1
     assert loop_attrs == {**{k: sum(c[k] for c in own)
                              for k in ("events", "tested", "flows",
-                                       "visited", "unread")},
+                                       "visited", "unread", "unreleased")},
                           "impl": _compiled_impl()}
     assert loop_attrs["flows"] == s.n_flows
 

@@ -19,9 +19,12 @@ outside the domain (``INVALID``) and where the loops deadlock. The tables
 are seeded and random, in every mode the loop has: work-conserving and
 priority-guard, releases, seeded horizons, per-flow delays, ``t0``, exact
 ties and service times below the time's ulp. The compiled loop's own
-counts, ``visited`` (the flow rows it read) and ``unread`` (the rows left
-behind its cursors), are at least ``tested`` and at least 0 on every
-table. An integer ``t0`` is a declared difference: the compiled loop reads
+counts, ``visited`` (the flow rows it read), ``unread`` (the rows left
+behind its cursors) and ``unreleased`` (the pending rows it read before
+their release), hold on every table: ``visited`` is at least ``tested +
+unreleased`` (equal under the guard, where ``unreleased`` is the twin's),
+``unread`` is at least 0 and ``unreleased`` is 0 without releases. An
+integer ``t0`` is a declared difference: the compiled loop reads
 it as a float, where the reference deadlocks.
 """
 import heapq
@@ -116,7 +119,9 @@ def _event_loop_plain(
     ``tested`` (the candidate rows that entered the feasibility test: the
     work-conserving candidates before the free-resource filter, the
     guarded pending rows after the release filter, once an event) and
-    ``flows`` (the flows started, ``F``). Counting changes no comparison.
+    ``flows`` (the flows started, ``F``); under the guard with ``release``
+    also ``unreleased`` (the pending rows the release filter drops).
+    Counting changes no comparison.
     """
     F = rin.size
     t_est = np.full(F, -1.0)
@@ -141,6 +146,7 @@ def _event_loop_plain(
     t = t0
     n_events = 1
     n_tested = 0
+    n_unreleased = 0
     if release is not None:
         rel_uniq, rel_inv = np.unique(release, return_inverse=True)
         events.extend(rel_uniq.tolist())
@@ -167,7 +173,9 @@ def _event_loop_plain(
                     act[core[pending[release[pending] == t]]] = True
                 pend = pending[act[core[pending]]]
             if release is not None and pend.size:
+                n_unreleased += pend.size
                 pend = pend[release[pend] <= t]
+                n_unreleased -= pend.size
             n_tested += pend.size
             if pend.size:
                 ri, rj = rin[pend], rout[pend]
@@ -190,7 +198,8 @@ def _event_loop_plain(
                         break
             t = _pop_next_event(events, t)
             n_events += 1
-        _add_counts(stats, n_events, n_tested, F)
+        _add_counts(stats, n_events, n_tested, F,
+                    unreleased=None if release is None else n_unreleased)
         return t_est
 
     in_lists = _by_resource(rin, n_res)
@@ -247,21 +256,29 @@ def _outcome(fn):
     return t_est.view(np.int64).tolist(), stats
 
 
-def _assert_counts(got: dict, want: dict, guard: bool) -> None:
+def _assert_counts(got: dict, want: dict, guard: bool,
+                   released: bool) -> None:
     """The compiled loop's counts ``got`` against the twin's ``want``:
     ``events`` and ``flows`` equal, ``tested`` equal under the guard and
     between the flows started and the twin's work-conserving, where the
-    merge stops reading a list early; ``visited >= tested``, and
-    ``unread >= 0`` (0 under the guard, which reads whole lists)."""
-    assert set(got) == {"events", "tested", "flows", "visited", "unread"}
+    merge stops reading a list early; ``unread >= 0`` (0 under the guard,
+    which reads whole lists); ``unreleased`` 0 without releases and the
+    twin's under the guard; ``visited >= tested + unreleased``, equal
+    under the guard, which tests every released row it reads."""
+    assert set(got) == {"events", "tested", "flows", "visited", "unread",
+                        "unreleased"}
     assert (got["events"], got["flows"]) == (want["events"], want["flows"])
     if guard:
         assert got["tested"] == want["tested"]
         assert got["unread"] == 0
+        assert got["visited"] == got["tested"] + got["unreleased"]
+        assert got["unreleased"] == want.get("unreleased", 0)
     else:
         assert want["flows"] <= got["tested"] <= want["tested"]
         assert got["unread"] >= 0
-    assert got["visited"] >= got["tested"]
+        assert got["visited"] >= got["tested"] + got["unreleased"]
+    if not released:
+        assert got["unreleased"] == 0
 
 
 def _assert_same(rin, rout, srv, core, delta, n_res, n_ports,
@@ -288,7 +305,8 @@ def _assert_same(rin, rout, srv, core, delta, n_res, n_ports,
     assert got[0] == want[0]
     assert isinstance(got[1], dict) == isinstance(want[1], dict)
     if isinstance(want[1], dict):
-        _assert_counts(got[1], want[1], kw["guard"])
+        _assert_counts(got[1], want[1], kw["guard"],
+                       kw.get("release") is not None)
     else:
         assert got == want
     if reference and isinstance(want[1], dict):
@@ -526,8 +544,40 @@ def test_a_list_is_read_up_to_the_row_that_takes_its_port():
     np.testing.assert_array_equal(t_est, [0, 0, 0, 11, 13, 2, 4, 6])
     assert t_est.view(np.int64).tolist() == out[0]
     assert counts == {"events": 7, "tested": 22, "flows": 8, "visited": 33,
-                      "unread": 3}
+                      "unread": 3, "unreleased": 0}
     assert out[1]["tested"] > counts["tested"]
+
+
+@GUARDS
+def test_rows_read_before_their_release_are_counted(guard):
+    """One core of 3 ports, delta 1: 0->0 (2 long) and 0->2 released at
+    0, 0->1 and 1->0 (1 long each) at 5. At 0 all four rows are read and
+    the two unreleased passed; 0->0 starts (until 3), 0->2 waits on
+    ingress 0. At 3 work-conserving reads ingress 0's list [0->0, 0->1,
+    0->2] and egress 0's [0->0, 1->0], passing 0->1 and 1->0 unreleased,
+    and starts 0->2 (until 5); the guard reads its three pending rows and
+    passes the same two. At 5 both start: work-conserving from ingress
+    0's list and the release group (which passes 0->1 untested, as
+    ingress 0's list tests it); the guard from its two pending rows. So
+    2 + 2 rows passed unreleased in both modes; read: work-conserving 4 +
+    5 + 4, the guard 4 + 3 + 2."""
+    rin = np.array([0, 0, 0, 1], dtype=np.int64)
+    rout = np.array([0, 1, 2, 0], dtype=np.int64)
+    srv = np.array([2.0, 1.0, 1.0, 1.0])
+    core = np.zeros(4, dtype=np.int64)
+    release = np.array([0.0, 5.0, 0.0, 5.0])
+    args = (rin, rout, srv, core, 1.0, 3, 3)
+    out = _assert_same(*args, guard=guard, release=release)
+    counts = {}
+    t_est = port_engine._event_loop(*args, guard=guard, release=release,
+                                    stats=counts)
+    np.testing.assert_array_equal(t_est, [0.0, 5.0, 3.0, 5.0])
+    assert t_est.view(np.int64).tolist() == out[0]
+    assert counts == {"events": 3, "tested": 5, "flows": 4,
+                      "visited": 9 if guard else 13, "unread": 0,
+                      "unreleased": 4}
+    if guard:
+        assert out[1]["unreleased"] == 4
 
 
 FREE_AFTER_START = {
